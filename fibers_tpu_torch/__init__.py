@@ -1,0 +1,84 @@
+"""fibers_tpu_torch — the fibers_tpu diffusion-MRI pipeline in PyTorch,
+for NVIDIA Hopper GPUs.
+
+The JAX package `fibers_tpu` is the reference; this package mirrors its
+layout and public names.  Host code that never touches JAX (I/O, MRI
+volumes, geometry, sphere tables, mask gather/scatter, the native C
+helpers) is shared: imported from `fibers_tpu` and re-exported here.
+Importing this package never imports jax.
+
+Ported so far: the headline pipeline — `prepare_batch`, `dti_fit`,
+`gqi_rec` (with its hand-written CUDA kernel), the device peak handoff
+and deterministic `stream`.  Names not ported yet raise
+`NotImplementedError` naming the ROADMAP item that ports them.
+"""
+
+from fibers_tpu.core.geometry import (vox2ras_0to1, vox2ras_tkreg,
+                                      vox2ras_to_orient, vox2ras_to_qform)
+from fibers_tpu.core.mri import MRI, NIfTIHeader
+from fibers_tpu.core.odf import ODF, half_sphere
+from fibers_tpu.core.xform import (Xform, xfm_apply, xfm_compose, xfm_inv,
+                                   xfm_read, xfm_read_mat, xfm_rotate)
+from fibers_tpu.io.bruker import load_bruker
+from fibers_tpu.io.btables import (mri_read_bfiles, mri_read_bfiles_into,
+                                   normalize_bvecs)
+from fibers_tpu.io.dispatch import (mri_read, mri_read_struct, mri_write,
+                                    mri_write_struct)
+from fibers_tpu.io.filename import get_tmp_path, mri_filename
+from fibers_tpu.io.mgh import load_mgh, save_mgh
+from fibers_tpu.io.nifti import load_nifti, load_nifti_hdr, save_nifti
+from fibers_tpu.io.trk import (Tract, str_add, str_merge, str_xform,
+                               trk_read, trk_write)
+from fibers_tpu.utils.coords import (ang2rot, cart2pol, cart2sph, isinmask,
+                                     pol2cart, sph2cart)
+
+# Reference-spelling alias (Fibers.jl exports `NIfTIheader`)
+NIfTIheader = NIfTIHeader
+
+_PORTED = {
+    "fibers_tpu_torch.models.dti": ("DTI", "adc_fit", "dti_fit",
+                                    "dti_fit_ls", "dti_maps", "dti_write"),
+    "fibers_tpu_torch.models.gqi": ("GQI", "gqi_rec", "gqi_write",
+                                    "find_peaks"),
+    "fibers_tpu_torch.tract.stream": ("stream", "StreamConfig",
+                                      "StreamWork", "peaks_to_ovecs"),
+    "fibers_tpu_torch.core.batch": ("VoxelBatch", "prepare_batch"),
+    "fibers_tpu.core.odf": ("sphere_362", "sphere_642", "sphere_724"),
+    "fibers_tpu.viz.show": ("LUT", "color_lut", "info", "disp",
+                            "show_slice", "vol_to_rgb", "view_axes"),
+}
+
+_NOT_PORTED = {
+    "RUMBA-SD (ROADMAP A7)": ("RUMBASD", "rumba_rec", "rumba_write",
+                              "rumba_peaks", "tensor_model",
+                              "besseli_ratio"),
+    "the structure tensor (ROADMAP A9)": ("st_recon", "st_eigen"),
+    "DSI (ROADMAP A10)": ("DSI", "dsi_rec", "dsi_write"),
+    "the LCM and microscopy tractography modes (ROADMAP A11)": (
+        "stream_micro_new_point",),
+    "the single-line and single-step stream API (ROADMAP A15)": (
+        "stream_new_line", "stream_new_point"),
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    for mod, names in _PORTED.items():
+        if name in names:
+            return getattr(importlib.import_module(mod), name)
+    if name == "show":
+        # the reference overloads Base.show for slice views
+        from fibers_tpu.viz.show import show_slice
+        return show_slice
+    if name == "view":
+        from fibers_tpu.viz.view import view
+        return view
+    for what, names in _NOT_PORTED.items():
+        if name in names:
+            raise NotImplementedError(
+                f"fibers_tpu_torch.{name}: {what} is not ported yet")
+    raise AttributeError(name)
+
+
+__version__ = "0.1.0"

@@ -1,0 +1,111 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All sources under `fibers_tpu_torch/csrc/` compile in one `nvcc`
+invocation into a shared library with a plain C interface, loaded with
+`ctypes` (no PyTorch headers, so a build takes seconds, not minutes).  The
+library lands in `build/kernels/` at the repository root, named by a hash
+of the sources and the flags, so an unchanged tree never rebuilds.  The
+kernels build only from a checkout of the repository (or an editable
+install of one): an installed copy of the package has no repository root
+to build into, and raises.
+
+There is no fallback: a missing `nvcc` or a failed build raises with the
+compiler's output.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["load_library", "build_dir"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_CSRC = os.path.join(_PKG, "csrc")
+_ROOT = os.path.dirname(_PKG)           # the checkout holding the package
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""          # the compiler's output of the build this process ran
+
+
+def build_dir() -> str:
+    """`build/kernels/` at the root of the checkout the package lies in."""
+    if not os.path.isfile(os.path.join(_ROOT, "pyproject.toml")):
+        raise RuntimeError(
+            f"fibers_tpu_torch at {_PKG} is not inside a checkout of the "
+            "repository: its CUDA kernels build only from a checkout or an "
+            "editable install")
+    return os.path.join(_ROOT, "build", "kernels")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {_CSRC}")
+    return srcs
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def _build() -> str:
+    global build_log
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    out_dir = build_dir()
+    so = os.path.join(out_dir, f"fibers_kernels-{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{so}.tmp.{os.getpid()}"
+    cu = [s for s in srcs if s.endswith(".cu")]
+    cmd = [_nvcc(), *FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, so)
+    return so
+
+
+def _declare(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.gqi_fused_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                     ci, ci, ci, ci, vp]
+    lib.gqi_fused_launch.restype = ci
+    lib.gqi_fused_smem_bytes.argtypes = [ci, ci]
+    lib.gqi_fused_smem_bytes.restype = ctypes.c_long
+
+
+def load_library():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(_build())
+            _declare(lib)
+            _lib = lib
+    return _lib
