@@ -3,16 +3,23 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the port's CUDA kernel from
-`fibers_tpu_torch/csrc/`, holds the kernel against its plain PyTorch
-version at the main path's shapes, drives the headline pipeline
-(prepare_batch -> dti_fit -> gqi_rec -> device peaks -> 1M-seed stream ->
-.trk) on the HCP-scale phantom, and checks the card's slice against the
-CPU's on a small phantom.  Every phase raises on failure.  It imports no
-jax; without a CUDA device it fails.
+Run from the root of a checkout.  It builds the port's CUDA kernels from
+`fibers_tpu_torch/csrc/` and drives both ported paths on the card:
+
+- GQI: the kernel against its plain PyTorch version at the main path's
+  shapes; the headline pipeline (prepare_batch -> dti_fit -> gqi_rec ->
+  device peaks -> 1M-seed stream -> .trk) on the HCP-scale phantom; the
+  card's slice against the CPU's on a small phantom.
+- RUMBA-SD: the four TV kernels against their plain versions at RUMBA's
+  shapes and the TV experiment's; config 4 (600 iterations at full
+  width) chained into ~1M streams and a .trk; a tv_bf16 run; the card's
+  slice against the CPU's on the small config-4 phantom.
+
+Every phase raises on failure.  It imports no jax; without a CUDA device
+it fails.
 
 Output: one line per phase with its wall time; then a JSON line with the
-kernel record, the `nvidia-smi` name and power limit, and as the last
+kernel records, the `nvidia-smi` name and power limit, and as the last
 line `{"ok": true, "device": {...}}`.
 """
 
@@ -24,6 +31,22 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# name, source, the Pallas call it replaces, and whether a fit's path
+# launches it (the two TV-variant experiments are on no path)
+KERNELS = [
+    ("gqi_fused", "fibers_tpu_torch/csrc/gqi_fused.cu",
+     "fibers_tpu/ops/pallas/gqi_fused.py:87", True),
+    ("tv_fused", "fibers_tpu_torch/csrc/tv_fused.cu",
+     "fibers_tpu/ops/pallas/tv_fused.py:320", True),
+    ("tv_multiplier", "fibers_tpu_torch/csrc/tv_stencil.cu",
+     "fibers_tpu/ops/pallas/tv_stencil.py:108", True),
+    ("tv_dimsem", "fibers_tpu_torch/csrc/tv_stencil.cu",
+     "benchmarks/exp_tv_variants.py:40", False),
+    ("tv_2slice", "fibers_tpu_torch/csrc/tv_stencil.cu",
+     "benchmarks/exp_tv_variants.py:99", False),
+]
+TV_TOL = dict(rtol=1e-6, atol=1e-6)     # tests/test_tv_pallas.py:155
 
 
 def check(cond, msg):
@@ -46,6 +69,31 @@ def cuda_ms(fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def _wrappers():
+    from fibers_tpu_torch.ops.kernels.gqi_fused import gqi_fused
+    from fibers_tpu_torch.ops.kernels.tv_fused import tv_fused
+    from fibers_tpu_torch.ops.kernels.tv_stencil import tv_multiplier
+    from fibers_tpu_torch.ops.kernels.tv_variants import tv_2slice, tv_dimsem
+    return dict(gqi_fused=gqi_fused, tv_fused=tv_fused,
+                tv_multiplier=tv_multiplier, tv_dimsem=tv_dimsem,
+                tv_2slice=tv_2slice)
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def device_values(mri):
+    """The device tensor behind a port result volume that no host code
+    has read yet (rows in mask order)."""
+    return mri.__dict__["vol"]._values
 
 
 def phase_device():
@@ -189,7 +237,6 @@ def phase_main():
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
-    from fibers_tpu_torch.ops.kernels.gqi_fused import gqi_fused
     from fibers_tpu_torch.utils.phantom import make_brain
 
     t0 = time.time()
@@ -205,10 +252,11 @@ def phase_main():
         # run 1 warms the allocator and the library loads; run 2 is the one
         # counted, timed and checked
         *_, t_warm = pipeline(dwi, mask, seed, "cuda", trk)
-        gqi_fused.launches = 0
+        reset_counts()
         dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk)
-        launches = gqi_fused.launches
+        counts = read_counts()
         back = tt.trk_read(trk)
+    launches = counts["gqi_fused"]
     npts = int(np.sum(tract.npts))
     for name, tt_ in (("run 1", t_warm), ("run 2", t)):
         log(f"[main] {name}: " + ", ".join(f"{k}={v:.3f} s"
@@ -219,6 +267,8 @@ def phase_main():
         f" GiB")
 
     check(launches >= 1, "the GQI stage did not launch the CUDA kernel")
+    check(sum(counts.values()) == launches,
+          f"the GQI path launched other kernels: {counts}")
     fa = dti.fa.vol[m]
     check(np.isfinite(fa).all(), "FA is not finite inside the mask")
     check(tract.n_count > 0, "no streamlines")
@@ -271,26 +321,287 @@ def phase_small():
           f"stream counts card {n_g} vs cpu {n_c}")
 
 
+def hold(name, fn, plain, reps, record=False):
+    """Kernel `fn()` against `plain()` on the card within TV_TOL; with
+    `reps`, also time both in turns plain / kernel / kernel / plain.
+    Returns {max_abs_err, ms, plain_ms} (times None without reps)."""
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = float((out - ref).abs().max())
+    equal = torch.equal(out, ref)
+    torch.testing.assert_close(out, ref, **TV_TOL)
+    del out, ref
+    rec = dict(max_abs_err=err, ms=None, plain_ms=None)
+    line = (f"[tv] {name}: max|kernel-plain|={err:.3g}"
+            f"{' (bit-equal)' if equal else ''}")
+    if reps:
+        fn()
+        plain()
+        torch.cuda.synchronize()
+        turns = [cuda_ms(f, reps) for f in (plain, fn, fn, plain)]
+        rec["ms"] = (turns[1] + turns[2]) / 2
+        rec["plain_ms"] = (turns[0] + turns[3]) / 2
+        line += (f"; kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f}"
+                 f" ms (turns {', '.join(f'{t:.3f}' for t in turns)})")
+    log(line)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_tv(mask):
+    """The four TV kernels against their plain versions: at RUMBA's shapes
+    (config-4 crop 128x128x90, C = 364, the 715,200-row fODF table), at
+    the TV experiment's (128x130x90x128), and at ragged ones.  Returns the
+    records at RUMBA's shapes, each as its path gives it the kernel."""
+    import numpy as np
+    import torch
+    from fibers_tpu.ops.masked import mask_indices
+    from fibers_tpu_torch.models.rumba import _tv_bbox
+    from fibers_tpu_torch.ops.kernels.tv_fused import (build_tables,
+                                                       tv_fused,
+                                                       tv_fused_plain)
+    from fibers_tpu_torch.ops.kernels.tv_stencil import (tv_multiplier,
+                                                         tv_multiplier_plain)
+    from fibers_tpu_torch.ops.kernels.tv_variants import (tv_2slice,
+                                                          tv_2slice_plain,
+                                                          tv_dimsem,
+                                                          tv_dimsem_plain)
+    dense_kernels = (("tv_multiplier", tv_multiplier, tv_multiplier_plain),
+                     ("tv_dimsem", tv_dimsem, tv_dimsem_plain),
+                     ("tv_2slice", tv_2slice, tv_2slice_plain))
+    t0 = time.time()
+    cuda = torch.device("cuda")
+    idx = mask_indices(mask.vol)
+    shape3, nxyz, idx_tv, _ = _tv_bbox(idx, mask.vol.shape[:3])
+    C = 364
+    rows = torch.from_numpy(np.random.default_rng(7).random(
+        (len(idx), C), dtype=np.float32)).to(cuda)
+    lam = torch.full(shape3, 0.0044, dtype=torch.float32, device=cuda)
+    tabs = build_tables(idx_tv, shape3, cuda)
+    out = torch.ones_like(rows)
+    log(f"[tv] RUMBA shapes: crop {shape3}, C={C}, {len(idx)} rows")
+    records = {"tv_fused": hold(
+        f"tv_fused rows {tuple(rows.shape)}",
+        lambda: tv_fused(rows, lam, tabs, out),
+        lambda: tv_fused_plain(rows, lam, tabs), 5)}
+    dense = torch.zeros((nxyz, C), dtype=torch.float32, device=cuda)
+    dense[torch.from_numpy(idx_tv).to(cuda)] = rows
+    dense = dense.reshape(shape3 + (C,))
+    del rows, out
+    b16 = dense.to(torch.bfloat16)
+    records["tv_multiplier"] = hold(
+        f"tv_multiplier bf16 {tuple(b16.shape)}",
+        lambda: tv_multiplier(b16, lam), lambda: tv_multiplier_plain(b16, lam),
+        3)
+    del b16
+    for name, fn, plain in dense_kernels:
+        rec = hold(f"{name} f32 {tuple(dense.shape)}",
+                   lambda: fn(dense, lam), lambda: plain(dense, lam), 3)
+        records.setdefault(name, rec)
+    del dense
+
+    # the TV experiment's shape (exp_tv_variants.py:119-123)
+    v = torch.from_numpy(np.random.default_rng(0).random(
+        (128, 130, 90, 128), dtype=np.float32)).to(cuda)
+    lam_e = torch.full((128, 130, 90), 0.004, dtype=torch.float32,
+                       device=cuda)
+    for name, fn, plain in dense_kernels:
+        hold(f"{name} f32 {tuple(v.shape)}", lambda: fn(v, lam_e),
+             lambda: plain(v, lam_e), 3)
+    del v, lam_e
+
+    # ragged: C = 7, X odd (even for tv_2slice), a random mask
+    rng = np.random.default_rng(3)
+    for shape in ((9, 10, 11, 7), (10, 10, 11, 7)):
+        v = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+        lm = torch.from_numpy(rng.uniform(0.001, 0.01, shape[:3]).astype(
+            np.float32)).to(cuda)
+        for name, fn, plain in dense_kernels:
+            if name != "tv_2slice" or shape[0] % 2 == 0:
+                hold(f"{name} f32 {shape}", lambda: fn(v, lm),
+                     lambda: plain(v, lm), 0)
+        vb = v.to(torch.bfloat16)
+        hold(f"tv_multiplier bf16 {shape}", lambda: tv_multiplier(vb, lm),
+             lambda: tv_multiplier_plain(vb, lm), 0)
+        cells = np.flatnonzero(rng.random(int(np.prod(shape[:3]))) < 0.6)
+        r = torch.from_numpy(rng.random((len(cells) + 5, shape[3]),
+                                        dtype=np.float32)).to(cuda)
+        tb = build_tables(cells, shape[:3], cuda)
+        hold(f"tv_fused rows {tuple(r.shape)} crop {shape[:3]}",
+             lambda: tv_fused(r, lm, tb), lambda: tv_fused_plain(r, lm, tb),
+             0)
+    log(f"[tv] phase {time.time() - t0:.1f} s")
+    return records
+
+
+def phase_rumba(dwi, mask, ax):
+    """Config 4 at full width on the card: RUMBA-SD, 600 iterations,
+    chained into ~1M streams written to a .trk; then a tv_bf16 run."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+
+    m = mask.vol > 0
+    nmask = int(m.sum())
+    t0 = time.time()
+    tt.rumba_rec(dwi, mask, tt.sphere_724, niter=2)         # warm run
+    torch.cuda.synchronize()
+    t_warm = time.time() - t0
+
+    niter = 600
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    t0 = time.time()
+    rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter,
+                       timings=stages)
+    t_fit = time.time() - t0
+    counts = read_counts()
+    peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[rumba] config 4: {dwi.vol.shape}, {nmask} voxels, sphere_724; "
+        f"warm run (2 iterations) {t_warm:.2f} s")
+    log(f"[rumba] {niter} iterations: " + ", ".join(
+        f"{k}={v:.3f} s" for k, v in stages.items())
+        + f", total {t_fit:.3f} s; {1e3 * stages['iterate'] / niter:.3f} ms"
+        f" per iteration; peak device memory {peak_mem:.1f} GiB; launches "
+        f"{counts}; snr_mean={rum.snr_mean:.3f} snr_std={rum.snr_std:.3f}")
+    check(counts["tv_fused"] == niter,
+          f"tv_fused launched {counts['tv_fused']} times in {niter} "
+          "iterations")
+    check(sum(counts.values()) == niter,
+          f"the RUMBA path launched other kernels: {counts}")
+
+    sums = device_values(rum.fodf)[:nmask].sum(dim=1)
+    dsum = float((sums - 1.0).abs().max())
+    gfa = rum.gfa.vol[m]
+    pk = rum.peak[0].vol[m]
+    norm = np.linalg.norm(pk, axis=-1)
+    cos = np.abs((pk * ax[m]).sum(-1)) / np.maximum(norm, 1e-30)
+    log(f"[rumba] max |sum(fODF) - 1| = {dsum:.3g}; GFA in "
+        f"[{gfa.min():.4f}, {gfa.max():.4f}]; peak 1 vs true axis median "
+        f"|cos| = {np.median(cos):.4f} over {nmask} voxels")
+    check(np.isfinite(gfa).all() and (gfa > 0).all()
+          and (gfa <= 1.0 + 1e-6).all(), "GFA outside (0, 1] in the mask")
+    check(8.0 <= rum.snr_mean <= 80.0, f"snr_mean {rum.snr_mean}")
+    check(dsum <= 1e-3, f"fODF + isotropic fractions sum off 1 by {dsum}")
+    check(np.median(cos) > 0.9, "RUMBA peak 1 does not follow the true axis")
+
+    seed = _seed_mask(mask, 1_000_000)
+    with tempfile.TemporaryDirectory() as d:
+        trk = os.path.join(d, "rumba.trk")
+        t1 = time.time()
+        pk = tt.peaks_to_ovecs(rum, device=True)
+        tract = tt.stream(pk, mask=mask, seed=seed, nsub=3, wire="f32",
+                          trk_sink=trk)
+        t_stream = time.time() - t1
+        back = tt.trk_read(trk)
+    npts = int(np.sum(tract.npts))
+    log(f"[rumba] chain: {int((seed.vol > 0).sum())} seed voxels, nsub=3, "
+        f"{pk.nvec} peaks: stream+write {t_stream:.3f} s, "
+        f"{tract.n_count} streams, {npts} points")
+    check(tract.n_count > 0, "no streamlines from the RUMBA peaks")
+    check(back.n_count == tract.n_count and int(np.sum(back.npts)) == npts,
+          f".trk holds {back.n_count} lines, the Tract {tract.n_count}")
+    del rum, pk, tract, back
+
+    # tv_bf16: the dense stencil kernel on a bf16 stack, against f32
+    nb = 50
+    reset_counts()
+    t1 = time.time()
+    b16 = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=nb, tv_bf16=True)
+    torch.cuda.synchronize()
+    t_b16 = time.time() - t1
+    counts_b16 = read_counts()
+    t1 = time.time()
+    f32 = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=nb)
+    torch.cuda.synchronize()
+    t_f32 = time.time() - t1
+    fb, ff = device_values(b16.fodf)[:nmask], device_values(f32.fodf)[:nmask]
+    dmax = float((fb - ff).abs().max())
+    log(f"[rumba] tv_bf16 {nb} iterations {t_b16:.3f} s (launches "
+        f"{counts_b16}), f32 {nb} iterations {t_f32:.3f} s; max |dfODF| = "
+        f"{dmax:.3g}")
+    check(counts_b16["tv_multiplier"] == nb and counts_b16["tv_fused"] == 0,
+          f"the tv_bf16 run launched {counts_b16}")
+    torch.testing.assert_close(fb, ff, rtol=0.05, atol=2e-3)
+    return counts, counts_b16, stages, t_stream
+
+
+def phase_rumba_small():
+    """The RUMBA slice on the card and on the CPU, on the small config-4
+    phantom (32x32x20, 32 volumes, 60 iterations)."""
+    import numpy as np
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.utils.phantom import make_rumba_brain
+
+    t0 = time.time()
+    dwi, mask, _ = make_rumba_brain(small=True)
+    seed = _seed_mask(mask, 30_000)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.time()
+        rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=60, device=dev)
+        tract = tt.stream(tt.peaks_to_ovecs(rum, device=True), mask=mask,
+                          seed=seed, nsub=3, wire="f32")
+        out[dev] = (rum.fodf.vol, rum.gfa.vol, rum.snr_mean,
+                    rum.peak[0].vol, tract.n_count, time.time() - t1)
+    (f_g, g_g, s_g, p_g, n_g, t_g), (f_c, g_c, s_c, p_c, n_c, t_c) = \
+        out["cuda"], out["cpu"]
+    m = mask.vol > 0
+    dfodf = float(np.abs(f_g - f_c).max())
+    dgfa = float(np.abs(g_g - g_c).max())
+    dsnr = abs(s_g - s_c)
+    ng, nc = np.linalg.norm(p_g, axis=-1), np.linalg.norm(p_c, axis=-1)
+    valid = m & (ng > 0) & (nc > 0)
+    cos = np.abs((p_g * p_c).sum(-1))[valid] / (ng * nc)[valid]
+    same = float((cos >= 1 - 1e-6).mean())
+    log(f"[rumba-small] 32x32x20x32, 60 iterations: card {t_g:.2f} s, cpu "
+        f"{t_c:.2f} s; max|dfODF|={dfodf:.3g} max|dGFA|={dgfa:.3g} "
+        f"|dsnr_mean|={dsnr:.3g}; peak 1 equal on {100 * same:.3f}% of "
+        f"{int(valid.sum())} voxels; streams card {n_g} cpu {n_c}; phase "
+        f"{time.time() - t0:.1f} s")
+    check(dfodf <= 1e-5, f"fODF differs by {dfodf} between card and CPU")
+    check(dgfa <= 1e-4, f"GFA differs by {dgfa} between card and CPU")
+    check(dsnr <= 1e-2, f"snr_mean differs by {dsnr} between card and CPU")
+    check(same >= 0.995, f"peak 1 equal on only {same:.4f} of voxels")
+    check(n_c > 0 and abs(n_g - n_c) <= 0.005 * n_c,
+          f"stream counts card {n_g} vs cpu {n_c}")
+
+
 def main():
     check(os.path.isdir(os.path.join(HERE, "fibers_tpu_torch")),
           "run from a checkout of the repository: fibers_tpu_torch/ is not "
           "beside this script")
     sys.path.insert(0, HERE)
     import torch
+    from fibers_tpu_torch.utils.phantom import make_rumba_brain
 
     t0 = time.time()
     smi = phase_device()
     phase_build()
-    record = phase_kernel()
-    launches, _, _, _ = phase_main()
+    records = {"gqi_fused": phase_kernel()}
+    launches = {"gqi_fused": phase_main()[0]}
     phase_small()
+
+    t1 = time.time()
+    dwi, mask, ax = make_rumba_brain()
+    log(f"[rumba] set-up: phantom {dwi.vol.shape} built in "
+        f"{time.time() - t1:.1f} s")
+    records.update(phase_tv(mask))
+    counts, counts_b16, _, _ = phase_rumba(dwi, mask, ax)
+    del dwi, mask, ax
+    launches["tv_fused"] = counts["tv_fused"]
+    launches["tv_multiplier"] = counts_b16["tv_multiplier"]
+    phase_rumba_small()
     check("jax" not in sys.modules, "jax was imported")
     log(f"[done] {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": [dict(
-        name="gqi_fused", route="cuda",
-        source="fibers_tpu_torch/csrc/gqi_fused.cu",
-        replaces="fibers_tpu/ops/pallas/gqi_fused.py:87",
-        launches=launches, **record)]}))
+        name=name, route="cuda", source=src, replaces=site,
+        launches=launches.get(name, 0), on_path=on_path, **records[name])
+        for name, src, site, on_path in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

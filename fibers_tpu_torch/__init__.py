@@ -9,8 +9,9 @@ Importing this package never imports jax.
 
 Ported so far: the headline pipeline — `prepare_batch`, `dti_fit`,
 `gqi_rec` (with its hand-written CUDA kernel), the device peak handoff
-and deterministic `stream`.  Names not ported yet raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+and deterministic `stream` — and RUMBA-SD (`rumba_rec`, with its two
+hand-written TV kernels) and its chain into `stream`.  Names not ported
+yet raise `NotImplementedError` naming the ROADMAP item that ports them.
 """
 
 from fibers_tpu.core.geometry import (vox2ras_0to1, vox2ras_tkreg,
@@ -40,6 +41,9 @@ _PORTED = {
                                     "dti_fit_ls", "dti_maps", "dti_write"),
     "fibers_tpu_torch.models.gqi": ("GQI", "gqi_rec", "gqi_write",
                                     "find_peaks"),
+    "fibers_tpu_torch.models.rumba": ("RUMBASD", "rumba_rec", "rumba_write",
+                                      "rumba_peaks", "tensor_model",
+                                      "besseli_ratio"),
     "fibers_tpu_torch.tract.stream": ("stream", "StreamConfig",
                                       "StreamWork", "peaks_to_ovecs"),
     "fibers_tpu_torch.core.batch": ("VoxelBatch", "prepare_batch"),
@@ -49,9 +53,6 @@ _PORTED = {
 }
 
 _NOT_PORTED = {
-    "RUMBA-SD (ROADMAP A7)": ("RUMBASD", "rumba_rec", "rumba_write",
-                              "rumba_peaks", "tensor_model",
-                              "besseli_ratio"),
     "the structure tensor (ROADMAP A9)": ("st_recon", "st_eigen"),
     "DSI (ROADMAP A10)": ("DSI", "dsi_rec", "dsi_write"),
     "the LCM and microscopy tractography modes (ROADMAP A11)": (

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All sources under `fibers_tpu_torch/csrc/` compile in one `nvcc`
-invocation into a shared library with a plain C interface, loaded with
-`ctypes` (no PyTorch headers, so a build takes seconds, not minutes).  The
+Every `.cu` source under `fibers_tpu_torch/csrc/` compiles in its own
+`nvcc` process, all started together, and the objects link into one
+shared library with a plain C interface, loaded with `ctypes` (no PyTorch
+headers, so a build takes seconds, not minutes).  The
 library lands in `build/kernels/` at the repository root, named by a hash
 of the sources and the flags, so an unchanged tree never rebuilds.  The
 kernels build only from a checkout of the repository (or an editable
@@ -29,8 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _ROOT = os.path.dirname(_PKG)           # the checkout holding the package
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -80,13 +81,36 @@ def _build() -> str:
         return so
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}"
-    cu = [s for s in srcs if s.endswith(".cu")]
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{build_log}")
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], None
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, out)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed is None:
+            cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (proc.returncode, cmd, logs[-1])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_log = "".join(logs)
+    if failed is not None:
+        rc, cmd, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, so)
     return so
 
@@ -98,6 +122,14 @@ def _declare(lib):
     lib.gqi_fused_launch.restype = ci
     lib.gqi_fused_smem_bytes.argtypes = [ci, ci]
     lib.gqi_fused_smem_bytes.restype = ctypes.c_long
+    lib.tv_multiplier_launch.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, vp]
+    lib.tv_multiplier_launch.restype = ci
+    for name in ("tv_dimsem_launch", "tv_2slice_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    lib.tv_fused_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.tv_fused_launch.restype = ci
 
 
 def load_library():

@@ -1,8 +1,8 @@
 """The PyTorch port never imports jax.
 
 The test process has jax loaded already (conftest.py), so the check runs
-in a fresh interpreter: import the port, run DTI, GQI and tractography on
-a tiny phantom, and look at sys.modules.
+in a fresh interpreter: import the port, run DTI, GQI, RUMBA-SD and
+tractography on a tiny phantom, and look at sys.modules.
 """
 
 import os
@@ -26,6 +26,9 @@ tr = tt.stream(tt.peaks_to_ovecs(gqi, device=True).first(1), fa=dti.fa,
                mask=mask, f_thresh=0.0)
 assert np.isfinite(dti.fa.vol).all() and gqi.odf.vol.shape[-1] == 181
 assert tr.n_count > 0
+rum = tt.rumba_rec(dwi, mask, tt.sphere_362, niter=3, device="cpu")
+tr2 = tt.stream(tt.peaks_to_ovecs(rum, device=True), mask=mask)
+assert np.isfinite(rum.gfa.vol).all() and tr2.n_count > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib"))
 print("JAX_MODULES", bad)

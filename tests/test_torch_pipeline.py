@@ -121,7 +121,7 @@ def test_write_results(tmp_path):
         assert os.path.isfile(f"{base}_{f}.nii.gz"), f
 
 
-@pytest.mark.parametrize("name", ["rumba_rec", "dsi_rec", "st_recon",
+@pytest.mark.parametrize("name", ["dsi_write", "dsi_rec", "st_recon",
                                   "stream_new_line", "stream_new_point"])
 def test_unported_names_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
