@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-`fibers_tpu_torch/csrc/` and drives both ported paths on the card:
+`fibers_tpu_torch/csrc/` and drives every ported path on the card:
 
 - GQI: the kernel against its plain PyTorch version at the main path's
   shapes; the headline pipeline (prepare_batch -> dti_fit -> gqi_rec ->
@@ -14,6 +14,11 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   shapes and the TV experiment's; config 4 (600 iterations at full
   width) chained into ~1M streams and a .trk; a tv_bf16 run; the card's
   slice against the CPU's on the small config-4 phantom.
+- DSI (config 3 at full width, chained into ~1M streams), the structure
+  tensor on config 4's volume, the LCM and microscopy tractography modes
+  and the CLI (`python -m fibers_tpu_torch dsi`/`structens`), with their
+  card-against-CPU checks on small inputs.  These paths run none of the
+  hand-written kernels; their launch counts must stay 0.
 
 Every phase raises on failure.  It imports no jax; without a CUDA device
 it fails.
@@ -571,6 +576,269 @@ def phase_rumba_small():
           f"stream counts card {n_g} vs cpu {n_c}")
 
 
+def _check_no_kernel(counts, what):
+    """The DSI, structure-tensor and LCM/micro paths run none of the five
+    kernels: their launch counts stay 0."""
+    check(not any(counts.values()), f"{what} launched kernels: {counts}")
+
+
+def phase_dsi():
+    """Config 3 at full width on the card (96^3, 515 q-samples,
+    sphere_642): a warm run, then a counted run with its stage times and
+    peak device memory; checks; the DSI peaks chained into ~1M streams
+    written to a .trk and read back."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.utils.phantom import make_dsi_brain
+
+    t0 = time.time()
+    dwi, mask, ax = make_dsi_brain()
+    m = mask.vol > 0
+    nmask = int(m.sum())
+    log(f"[dsi] set-up: phantom {dwi.vol.shape} built in "
+        f"{time.time() - t0:.1f} s; {nmask} masked voxels")
+    t0 = time.time()
+    tt.dsi_rec(dwi, mask, tt.sphere_642)                   # warm run
+    torch.cuda.synchronize()
+    t_warm = time.time() - t0
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    t0 = time.time()
+    dsi = tt.dsi_rec(dwi, mask, tt.sphere_642, timings=stages)
+    t_fit = time.time() - t0
+    counts = read_counts()
+    peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[dsi] config 3: warm run {t_warm:.3f} s; counted run "
+        + ", ".join(f"{k}={v:.3f} s" for k, v in stages.items())
+        + f", total {t_fit:.3f} s; peak device memory {peak_mem:.2f} GiB; "
+        f"launches {counts}")
+    _check_no_kernel(counts, "the DSI path")
+
+    for name in ("pdf", "odf"):
+        v = device_values(getattr(dsi, name))[:nmask]
+        check(bool(torch.isfinite(v).all()), f"DSI {name} not finite")
+    qa = dsi.qa[0].vol[m]
+    pk = dsi.peak[0].vol[m]
+    cos = np.abs((pk * ax[m]).sum(-1))
+    log(f"[dsi] QA1 in [{qa.min():.4f}, {qa.max():.4f}]; peak 1 vs true "
+        f"axis median |cos|={np.median(cos):.4f} over {nmask} voxels")
+    check(np.isfinite(qa).all() and (qa > 0).all(), "QA1 not positive")
+    check(np.median(cos) > 0.9, "DSI peak 1 does not follow the true axis")
+
+    seed = _seed_mask(mask, 1_000_000)
+    with tempfile.TemporaryDirectory() as d:
+        trk = os.path.join(d, "dsi.trk")
+        t1 = time.time()
+        pkd = tt.peaks_to_ovecs(dsi, device=True)
+        tract = tt.stream(pkd, mask=mask, seed=seed, nsub=3, wire="f32",
+                          trk_sink=trk)
+        t_stream = time.time() - t1
+        back = tt.trk_read(trk)
+    npts = int(np.sum(tract.npts))
+    log(f"[dsi] chain: {int((seed.vol > 0).sum())} seed voxels, nsub=3, "
+        f"{pkd.nvec} peaks: stream+write {t_stream:.3f} s, "
+        f"{tract.n_count} streams, {npts} points")
+    check(tract.n_count > 0, "no streamlines from the DSI peaks")
+    check(back.n_count == tract.n_count and int(np.sum(back.npts)) == npts,
+          f".trk holds {back.n_count} lines, the Tract {tract.n_count}")
+
+
+def phase_structens(vol):
+    """st_recon on the mean DWI of config 4 (140x140x92), sigma 1, rho 2,
+    lazy, as bench_models.py pairs it with RUMBA: a warm run, then a
+    timed one."""
+    import torch
+    import fibers_tpu_torch as tt
+
+    tt.st_recon(vol, sigma=1.0, rho=2.0, lazy=True)          # warm run
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    evecs, evals = tt.st_recon(vol, sigma=1.0, rho=2.0, lazy=True)
+    torch.cuda.synchronize()
+    t_st = time.time() - t0
+    counts = read_counts()
+    ev = evals.device
+    log(f"[structens] {tuple(vol.shape)}: {1e3 * t_st:.2f} ms (upload, 30 "
+        f"banded GEMMs, eigh3; lazy outputs stay on the card); "
+        f"eigenvalues in [{float(ev.min()):.4g}, {float(ev.max()):.4g}]")
+    _check_no_kernel(counts, "the structure tensor")
+    check(tuple(ev.shape) == tuple(vol.shape) + (3,)
+          and tuple(evecs.device.shape) == tuple(vol.shape) + (3, 3),
+          "structure-tensor output shapes")
+    check(bool(torch.isfinite(ev).all()), "eigenvalues not finite")
+    check(bool((ev.diff(dim=-1) >= 0).all()), "eigenvalues not ascending")
+    return t_st
+
+
+def _micro_seed(mask):
+    """Every other voxel in x and y of the mask."""
+    import numpy as np
+    from fibers_tpu.core.mri import MRI
+    seed = MRI.like(mask, 1, np.float32)
+    sv = np.zeros(mask.vol.shape, np.float32)
+    sv[::2, ::2] = mask.vol[::2, ::2]
+    seed.vol = sv
+    return seed
+
+
+# the microscopy regime's own defaults (reference: src/stream.jl:83-92)
+MICRO = dict(nsub=None, ang_thresh=None, step_size=None, smooth_coeff=None)
+
+
+def phase_modes():
+    """LCM on a 256x256 slice (3 jitters per voxel) and microscopy on a
+    256x256x2 field at 10 um (every 4th voxel seeded), each written to a
+    .trk and read back."""
+    import numpy as np
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.utils.phantom import make_lcm_field, make_micro_field
+
+    ovecs, lcm, lmask = make_lcm_field((256, 256))
+    mov, mmask = make_micro_field()
+    mseed = _micro_seed(mmask)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        for name, run in (
+                ("lcm", lambda trk: tt.stream(ovecs, mask=lmask, lcms=lcm,
+                                              nsub=3, trk_sink=trk)),
+                ("micro", lambda trk: tt.stream(mov, mask=mmask, seed=mseed,
+                                                search_dist=15, trk_sink=trk,
+                                                **MICRO))):
+            trk = os.path.join(d, f"{name}.trk")
+            t0 = time.time()
+            tract = run(trk)
+            t = time.time() - t0
+            back = tt.trk_read(trk)
+            npts = int(np.sum(tract.npts))
+            log(f"[modes] {name}: {tract.n_count} streams, {npts} points, "
+                f"stream+write {t:.3f} s")
+            check(tract.n_count > 0, f"no {name} streamlines")
+            check(back.n_count == tract.n_count
+                  and int(np.sum(back.npts)) == npts,
+                  f"{name} .trk holds {back.n_count} lines, the Tract "
+                  f"{tract.n_count}")
+            if name == "lcm":
+                check(back.n_scalars == 1, "the LCM .trk has no scalar")
+            out[name] = t
+        _check_no_kernel(read_counts(), "the LCM and micro modes")
+    return out
+
+
+def phase_new_small():
+    """DSI, the structure tensor and the two modes on the card and on the
+    CPU, on small inputs.  Tolerances: DSI ODF within 1e-5 and QA within
+    1e-4 (the GQI card check's), peak 1 equal on >= 99.5% of valid
+    voxels; eigenvalues within 1e-5 of the largest; micro lines
+    identical; LCM line counts within 3% and mean lengths within 5%
+    (tests/test_torch_modes.py's bounds)."""
+    import numpy as np
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.utils.phantom import (make_dsi_brain,
+                                                make_lcm_field,
+                                                make_micro_field,
+                                                make_rumba_brain)
+
+    t0 = time.time()
+    dwi, mask, _ = make_dsi_brain(small=True)
+    g, c = (tt.dsi_rec(dwi, mask, tt.sphere_642, device=dev)
+            for dev in ("cuda", "cpu"))
+    dodf = float(np.abs(g.odf.vol - c.odf.vol).max())
+    dqa = float(np.abs(g.qa[0].vol - c.qa[0].vol).max())
+    valid = (g.qa[0].vol > 0) & (c.qa[0].vol > 0)
+    same = float(np.all(g.peak[0].vol == c.peak[0].vol, -1)[valid].mean())
+    log(f"[small] DSI 32x32x20x123: max|dODF|={dodf:.3g} max|dQA|={dqa:.3g}"
+        f" peak-1 equal on {100 * same:.3f}% of {int(valid.sum())} voxels")
+    check(dodf <= 1e-5, f"DSI ODF differs by {dodf} between card and CPU")
+    check(dqa <= 1e-4, f"DSI QA differs by {dqa} between card and CPU")
+    check(same >= 0.995, f"DSI peak 1 equal on only {same:.4f} of voxels")
+
+    vol = make_rumba_brain(small=True)[0].vol.mean(axis=3)
+    (eg, lg), (ec, lc) = (tt.st_recon(vol, 1.0, 2.0, device=dev)
+                          for dev in ("cuda", "cpu"))
+    dl = float(np.abs(lg - lc).max() / np.abs(lc).max())
+    log(f"[small] st_recon 32x32x20: max|dλ|/max|λ|={dl:.3g}")
+    check(dl <= 1e-5, f"eigenvalues differ by {dl} (relative)")
+
+    mov, mmask = make_micro_field((40, 36, 2))
+    a, b = (tt.stream(mov, mask=mmask, search_dist=15, device=dev, **MICRO)
+            for dev in ("cuda", "cpu"))
+    log(f"[small] micro 40x36x2: streams card {a.n_count} cpu {b.n_count}")
+    check(a.n_count == b.n_count > 0 and np.array_equal(a.npts, b.npts)
+          and np.array_equal(a.packed_xyz, b.packed_xyz),
+          "micro lines differ between card and CPU")
+
+    ovecs, lcm, lmask = make_lcm_field((64, 64))
+    a, b = (tt.stream(ovecs, mask=lmask, lcms=lcm, device=dev)
+            for dev in ("cuda", "cpu"))
+    rl = float(np.mean(a.npts) / np.mean(b.npts))
+    log(f"[small] LCM 64x64: streams card {a.n_count} cpu {b.n_count}, "
+        f"mean length ratio {rl:.4f}; phase {time.time() - t0:.1f} s")
+    check(b.n_count > 0 and abs(a.n_count / b.n_count - 1) < 0.03,
+          f"LCM counts card {a.n_count} cpu {b.n_count}")
+    check(abs(rl - 1) < 0.05, f"LCM mean length ratio {rl}")
+    return g
+
+
+def phase_cli(dsi_small):
+    """`python -m fibers_tpu_torch dsi` and `structens` on the small DSI
+    phantom, two processes on the card at once; each output read back."""
+    import numpy as np
+    import fibers_tpu_torch as tt
+    from fibers_tpu.core.mri import MRI
+    from fibers_tpu_torch.utils.phantom import make_dsi_brain
+
+    t0 = time.time()
+    dwi, mask, _ = make_dsi_brain(small=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as d:
+        dp, mp, sp = (os.path.join(d, f) for f in ("dwi.nii.gz",
+                                                   "mask.nii.gz",
+                                                   "mean.nii.gz"))
+        tt.mri_write(dwi, dp)
+        tt.mri_write(mask, mp)
+        mean = MRI.like(mask, 1, np.float32)
+        mean.vol = dwi.vol.mean(axis=3)
+        tt.mri_write(mean, sp)
+        cmds = [[sys.executable, "-m", "fibers_tpu_torch", "dsi", dp, mp,
+                 os.path.join(d, "dsi")],
+                [sys.executable, "-m", "fibers_tpu_torch", "structens", sp,
+                 os.path.join(d, "st")]]
+        procs = [subprocess.Popen(c, cwd=HERE, env=env, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE) for c in cmds]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for c, p, (out, err) in zip(cmds, procs, outs):
+            check(p.returncode == 0, f"{' '.join(c[2:4])} exited "
+                  f"{p.returncode}: {err[-2000:]}")
+        qa = tt.mri_read(os.path.join(d, "dsi_qa1.nii.gz")).vol
+        odf = tt.mri_read(os.path.join(d, "dsi_odf.nii.gz")).vol
+        ev = tt.mri_read(os.path.join(d, "st_eigval.nii.gz")).vol
+        evec = tt.mri_read(os.path.join(d, "st_eigvec.nii.gz")).vol
+    dqa = float(np.abs(qa - dsi_small.qa[0].vol).max())
+    log(f"[cli] dsi + structens as two processes: {time.time() - t0:.1f} s;"
+        f" dsi_qa1 vs the in-process card run max|d|={dqa:.3g}; odf "
+        f"{odf.shape}, eigval {ev.shape}, eigvec {evec.shape}")
+    check(odf.shape == mask.vol.shape + (321,), f"dsi_odf shape {odf.shape}")
+    # the card's run is deterministic and a CPU run differs by ~1e-6, so
+    # only a bit-equal QA1 shows that the CLI ran on the card
+    check(dqa == 0, f"the CLI's QA1 differs by {dqa} from the card's run")
+    check(ev.shape == mask.vol.shape + (3,) and evec.shape[-1] == 9
+          and np.isfinite(ev).all() and (np.diff(ev, axis=-1) >= 0).all(),
+          "the CLI's eigenvalues")
+
+
 def main():
     check(os.path.isdir(os.path.join(HERE, "fibers_tpu_torch")),
           "run from a checkout of the repository: fibers_tpu_torch/ is not "
@@ -592,10 +860,22 @@ def main():
         f"{time.time() - t1:.1f} s")
     records.update(phase_tv(mask))
     counts, counts_b16, _, _ = phase_rumba(dwi, mask, ax)
+    mean_dwi = dwi.vol.mean(axis=3)
     del dwi, mask, ax
     launches["tv_fused"] = counts["tv_fused"]
     launches["tv_multiplier"] = counts_b16["tv_multiplier"]
     phase_rumba_small()
+
+    # the paths with no hand-written kernel: DSI, the structure tensor,
+    # the LCM and micro modes, the CLI
+    t1 = time.time()
+    phase_structens(mean_dwi)
+    del mean_dwi
+    phase_dsi()
+    phase_modes()
+    dsi_small = phase_new_small()
+    phase_cli(dsi_small)
+    log(f"[new phases] {time.time() - t1:.1f} s")
     check("jax" not in sys.modules, "jax was imported")
     log(f"[done] {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": [dict(

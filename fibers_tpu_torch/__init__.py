@@ -7,11 +7,14 @@ volumes, geometry, sphere tables, mask gather/scatter, the native C
 helpers) is shared: imported from `fibers_tpu` and re-exported here.
 Importing this package never imports jax.
 
-Ported so far: the headline pipeline — `prepare_batch`, `dti_fit`,
-`gqi_rec` (with its hand-written CUDA kernel), the device peak handoff
-and deterministic `stream` — and RUMBA-SD (`rumba_rec`, with its two
-hand-written TV kernels) and its chain into `stream`.  Names not ported
-yet raise `NotImplementedError` naming the ROADMAP item that ports them.
+Every public name of `fibers_tpu` resolves here: the headline pipeline
+(`prepare_batch`, `dti_fit`, `gqi_rec` with its hand-written CUDA kernel,
+the device peak handoff and `stream`), RUMBA-SD (`rumba_rec`, with its
+two hand-written TV kernels), DSI, the structure tensor, the LCM and
+microscopy tractography modes, the single-line and single-step stream
+API, and `python -m fibers_tpu_torch`.  Not ported yet: `mesh=` (ROADMAP
+A13) and the quantized wires (A14), which raise `NotImplementedError`
+naming their item.
 """
 
 from fibers_tpu.core.geometry import (vox2ras_0to1, vox2ras_tkreg,
@@ -44,23 +47,18 @@ _PORTED = {
     "fibers_tpu_torch.models.rumba": ("RUMBASD", "rumba_rec", "rumba_write",
                                       "rumba_peaks", "tensor_model",
                                       "besseli_ratio"),
+    "fibers_tpu_torch.models.dsi": ("DSI", "dsi_rec", "dsi_write"),
+    "fibers_tpu_torch.models.structens": ("st_recon", "st_eigen"),
     "fibers_tpu_torch.tract.stream": ("stream", "StreamConfig",
-                                      "StreamWork", "peaks_to_ovecs"),
+                                      "StreamWork", "stream_new_line",
+                                      "stream_new_point",
+                                      "stream_micro_new_point",
+                                      "peaks_to_ovecs"),
     "fibers_tpu_torch.core.batch": ("VoxelBatch", "prepare_batch"),
     "fibers_tpu.core.odf": ("sphere_362", "sphere_642", "sphere_724"),
     "fibers_tpu.viz.show": ("LUT", "color_lut", "info", "disp",
                             "show_slice", "vol_to_rgb", "view_axes"),
 }
-
-_NOT_PORTED = {
-    "the structure tensor (ROADMAP A9)": ("st_recon", "st_eigen"),
-    "DSI (ROADMAP A10)": ("DSI", "dsi_rec", "dsi_write"),
-    "the LCM and microscopy tractography modes (ROADMAP A11)": (
-        "stream_micro_new_point",),
-    "the single-line and single-step stream API (ROADMAP A15)": (
-        "stream_new_line", "stream_new_point"),
-}
-
 
 def __getattr__(name):
     import importlib
@@ -75,10 +73,6 @@ def __getattr__(name):
     if name == "view":
         from fibers_tpu.viz.view import view
         return view
-    for what, names in _NOT_PORTED.items():
-        if name in names:
-            raise NotImplementedError(
-                f"fibers_tpu_torch.{name}: {what} is not ported yet")
     raise AttributeError(name)
 
 

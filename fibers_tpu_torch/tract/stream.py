@@ -16,8 +16,13 @@ at a valid voxel (its `inb` flag stops the stream).
 The driver is one loop over seed chunks: propagate, compact the kept
 lines on the device into their final point order, copy them to pinned
 host memory, append them to the .trk sink (or collect them for a
-`Tract`).  Only the exact float32 point wire exists; the reference's
+`Tract`).  The LCM and microscopy modes (tract/modes.py) run through the
+same driver.  Only the exact float32 point wire exists; the reference's
 quantized wires and its tunnel-shaped fetch pipeline are not ported.
+
+`stream_new_line` propagates one seed through the batched engine;
+`stream_new_point` and `stream_micro_new_point` are the reference's
+single-step numpy functions over a `StreamWork` of host volumes.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from ..core.handoff import DevicePeaks
 from ..device import resolve
 from ..utils.prng import prng_key, uniform
 
-__all__ = ["stream", "StreamConfig", "StreamWork", "propagate_chunk",
+__all__ = ["stream", "StreamConfig", "StreamWork", "stream_new_line",
+           "stream_new_point", "stream_micro_new_point", "propagate_chunk",
            "peaks_to_ovecs"]
 
 
@@ -124,7 +130,7 @@ def _flat_index(ipos, shape3):
 
 def _pick_by_angle(vec_now, vecs):
     """Greedy choice among candidate vectors [S, nvec, 3]: max |cos| to the
-    current direction, sign-flipped to align.
+    current direction, sign-flipped to align.  Returns (vnext, ok, ivec).
     (reference: src/stream.jl:340-374)"""
     cos = (vecs * vec_now[:, None, :]).sum(dim=2)
     iszero = (vecs == 0).all(dim=2)
@@ -136,7 +142,17 @@ def _pick_by_angle(vec_now, vecs):
     v = torch.gather(vecs, 1, ivec[:, None, None].expand(-1, 1, 3))[:, 0, :]
     ok = torch.isfinite(c)
     vnext = torch.where((c > 0)[:, None], v, -v)
-    return vnext, ok
+    return vnext, ok, ivec
+
+
+def _smooth_dir(vec, vnext, smooth_coeff):
+    """EMA smoothing of the next direction, renormalised (reference:
+    src/stream.jl:672-677)."""
+    if smooth_coeff == 0.0:
+        return vnext
+    vsm = smooth_coeff * vec + (1.0 - smooth_coeff) * vnext
+    return vsm / torch.clamp_min(
+        torch.sqrt((vsm * vsm).sum(dim=1, keepdim=True)), 1e-20)
 
 
 def _propagate(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
@@ -161,7 +177,7 @@ def _propagate(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
     for t in range(nsteps):
         pos_next = pos + vec * step_size
         flat, inb = _flat_index(torch.round(pos_next).to(torch.int64), shape3)
-        vnext, okvec = _pick_by_angle(vec, ovecs_flat[flat])
+        vnext, okvec, _ = _pick_by_angle(vec, ovecs_flat[flat])
 
         # save the CURRENT position (pre-step), as the reference does
         save = active & inb & okvec
@@ -174,16 +190,21 @@ def _propagate(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
         cont = save & (cosang >= cosang_thresh) & (npts <= len_max)
 
         # EMA smoothing, then advance
-        if smooth_coeff == 0.0:
-            vsm = vnext
-        else:
-            vsm = smooth_coeff * vec + (1.0 - smooth_coeff) * vnext
-            vsm = vsm / torch.clamp_min(
-                torch.sqrt((vsm * vsm).sum(dim=1, keepdim=True)), 1e-20)
         pos = torch.where(cont[:, None], pos_next, pos)
-        vec = torch.where(cont[:, None], vsm, vec)
+        vec = torch.where(cont[:, None], _smooth_dir(vec, vnext,
+                                                     smooth_coeff), vec)
         active = cont
     return outs, saved, npts
+
+
+def _seed_state(seeds, subs, ovecs_flat, shape3):
+    """Start positions [S, 3] (seed voxel + sub-voxel offset, host arrays)
+    and the first orientation vector at each seed voxel (reference:
+    src/stream.jl:645-650), on the device of `ovecs_flat`."""
+    pos0 = torch.from_numpy(np.asarray(seeds + subs, np.float32)).to(
+        ovecs_flat.device)
+    flat, _ = _flat_index(torch.round(pos0).to(torch.int64), shape3)
+    return pos0, ovecs_flat[flat][:, 0, :]
 
 
 def propagate_chunk(seeds, subs, ovecs_flat, shape3, nsteps, step_size,
@@ -194,12 +215,7 @@ def propagate_chunk(seeds, subs, ovecs_flat, shape3, nsteps, step_size,
     Returns (fwd_out, fwd_n, bwd_out, bwd_n) on the device of
     `ovecs_flat`: [nsteps, S, 3] saved points and [S] int32 counts."""
     dev = ovecs_flat.device
-    pos0 = torch.from_numpy(np.asarray(seeds + subs, np.float32)).to(dev)
-    flat, _ = _flat_index(torch.round(pos0).to(torch.int64), shape3)
-    # initial vector: first orientation vector at the seed voxel
-    # (reference: src/stream.jl:645-650)
-    v0 = ovecs_flat[flat][:, 0, :]
-
+    pos0, v0 = _seed_state(seeds, subs, ovecs_flat, shape3)
     zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
     args = (ovecs_flat, nsteps, shape3, step_size, cosang_thresh,
             smooth_coeff, len_max)
@@ -218,7 +234,10 @@ def _compact(fwd_out, bwd_out, fwd_n, bwd_n, keep, line_off, total):
     the device: each kept line is its reversed forward prefix, then its
     backward prefix (the reference's prepend/append order).  Points of
     dropped streams and unsaved steps go to a spare row past `total` that
-    is cut off.  Returns [total, 3] points in line order."""
+    is cut off.  fwd_out/bwd_out: [nsteps, S, ...] per-step values, the
+    points [.., 3] or the LCM's per-point scalar flags (the counterpart
+    of the reference's _compact_scalars).  Returns [total, ...] in line
+    order."""
     nsteps = fwd_out.shape[0]
     dev = fwd_out.device
     t_idx = torch.arange(nsteps, dtype=torch.int64, device=dev)[:, None]
@@ -230,9 +249,10 @@ def _compact(fwd_out, bwd_out, fwd_n, bwd_n, keep, line_off, total):
     dst_f = torch.where((t_idx < fwd_n) & keep, off + fwd_n - 1 - t_idx,
                         spare)
     dst_b = torch.where((t_idx < bwd_n) & keep, off + fwd_n + t_idx, spare)
-    out = torch.empty((total + 1, 3), dtype=fwd_out.dtype, device=dev)
-    out[dst_f.reshape(-1)] = fwd_out.reshape(-1, 3)
-    out[dst_b.reshape(-1)] = bwd_out.reshape(-1, 3)
+    tail = tuple(fwd_out.shape[2:])
+    out = torch.empty((total + 1,) + tail, dtype=fwd_out.dtype, device=dev)
+    out[dst_f.reshape(-1)] = fwd_out.reshape((-1,) + tail)
+    out[dst_b.reshape(-1)] = bwd_out.reshape((-1,) + tail)
     return out[:total]
 
 
@@ -264,15 +284,21 @@ class _TrkStream(TrkSink):
         super().close()
 
 
-def _drive(launch, starts, len_min, tr, trk_sink):
+def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False):
     """One loop over seed chunks: propagate, compact the kept lines on the
     device, copy them to the host, append them to the sink or keep them
-    for the Tract.  Returns the finished Tract."""
+    for the Tract.  Returns the finished Tract.
+
+    launch(lo) -> (fwd_out, fwd_n, bwd_out, bwd_n) or, with has_scalars,
+    (..., fwd_scal, bwd_scal): [nsteps, S] int8 per-point flags that go
+    with the points as the Tract's one scalar."""
+    if has_scalars:
+        tr.n_scalars = 1          # before the sink writes the header
     sink = _TrkStream(trk_sink, tr) if trk_sink is not None else None
-    counts, parts = [], []
+    counts, parts, sparts = [], [], []
     with sink if sink is not None else contextlib.nullcontext():
         for lo in starts:
-            fwd_out, fwd_n_d, bwd_out, bwd_n_d = launch(lo)
+            fwd_out, fwd_n_d, bwd_out, bwd_n_d, *scal = launch(lo)
             fwd_n, bwd_n = _to_host(torch.stack([fwd_n_d, bwd_n_d]))
             tot = fwd_n.astype(np.int64) + bwd_n
             keep = tot >= len_min
@@ -282,23 +308,29 @@ def _drive(launch, starts, len_min, tr, trk_sink):
             off = np.zeros(len(tot), np.int64)
             off[keep] = np.concatenate([[0], np.cumsum(npts)[:-1]])
             dev = fwd_out.device
-            pts = _to_host(_compact(
-                fwd_out, bwd_out, fwd_n_d, bwd_n_d,
-                torch.from_numpy(keep).to(dev), torch.from_numpy(off).to(dev),
-                int(npts.sum())))
+            lines = (fwd_n_d, bwd_n_d, torch.from_numpy(keep).to(dev),
+                     torch.from_numpy(off).to(dev), int(npts.sum()))
+            pts = _to_host(_compact(fwd_out, bwd_out, *lines))
+            sc = _to_host(_compact(*scal, *lines)).astype(np.float32) \
+                if has_scalars else None
             npts = npts.astype(np.int32)
             counts.append(npts)
             if sink is not None:
-                sink.append(pts, npts)
+                sink.append(pts, npts, None if sc is None else sc[:, None])
             else:
                 parts.append(pts)
+                sparts.append(sc)
     npts = np.concatenate(counts) if counts else np.zeros(0, np.int32)
     if sink is not None:
         tr.npts = npts
         tr.n_count = int(len(npts))
         return tr
+    scalars = None
+    if has_scalars:
+        scalars = np.concatenate(sparts) if sparts else \
+            np.zeros(0, np.float32)
     tr.set_packed(np.concatenate(parts) if parts
-                  else np.zeros((0, 3), np.float32), npts)
+                  else np.zeros((0, 3), np.float32), npts, scalars=scalars)
     return tr
 
 
@@ -474,6 +506,113 @@ class StreamWork:
                 self.ovec_arr.reshape(-1, self.nvec, 3)).to(self.device)
 
 
+def _seed_voxels(mask_array, seed):
+    """[nseed, 3] seed voxel indices: the mask's, or the seed volume's
+    (reference: src/stream.jl:743-754)."""
+    if seed is None:
+        return np.argwhere(mask_array)
+    svol = seed.vol if seed.vol.ndim == 3 else seed.vol[..., 0]
+    if svol.shape != mask_array.shape:
+        raise ValueError(
+            f"Dimension mismatch between seed mask {svol.shape} and "
+            f"brain mask {mask_array.shape}")
+    return np.argwhere(svol > 0)
+
+
+def stream_new_line(seed_vox, sub_vox, work: StreamWork) -> np.ndarray:
+    """The bidirectional streamline of one seed voxel as a [3, npts]
+    polyline (reference: src/stream.jl:625-686): a single-stream chunk
+    through the batched engine, exact float32 points."""
+    seeds = np.asarray(seed_vox, np.float32)[None, :]
+    subs = np.asarray(sub_vox, np.float32)[None, :]
+    fwd, fwd_n, bwd, bwd_n = propagate_chunk(
+        seeds, subs, work.ovec_flat, work.shape3, int(work.len_max) + 2,
+        float(work.step_size), float(np.cos(np.radians(work.ang_thresh))),
+        float(work.smooth_coeff), int(work.len_max))
+    n = int(_to_host(fwd_n + bwd_n)[0])
+    one = torch.ones(1, dtype=torch.bool, device=fwd.device)
+    zero = torch.zeros(1, dtype=torch.int64, device=fwd.device)
+    flat = _to_host(_compact(fwd, bwd, fwd_n, bwd_n, one, zero, n))
+    return np.ascontiguousarray(flat.T)
+
+
+def stream_new_point(pos_now, vec_now, work: StreamWork):
+    """One deterministic (angle-greedy) propagation step on the host.
+    (reference: src/stream.jl:501-541, exported as `stream_new_point!`)
+
+    Returns (pos_next [3], vec_next [3], ok).  ok=False mirrors the
+    reference's early `return false` (out of volume, out of mask, or no
+    valid orientation vector); pos/vec come back unchanged then.  The
+    picked vec_next is unsmoothed: the line driver applies the angle
+    threshold and smoothing afterwards, like the reference.  A copy of
+    fibers_tpu.tract.stream.stream_new_point."""
+    pos_now = np.asarray(pos_now, np.float64)
+    vec_now = np.asarray(vec_now, np.float64)
+    nx, ny, nz = work.shape3
+    pos_next = pos_now + vec_now * float(work.step_size)
+    inext = np.round(pos_next).astype(int)
+    if not ((0 <= inext[0] < nx) and (0 <= inext[1] < ny)
+            and (0 <= inext[2] < nz)):
+        return pos_now, vec_now, False
+    if not work.mask_array[tuple(inext)]:
+        return pos_now, vec_now, False
+    vecs = work.ovec_arr[tuple(inext)].astype(np.float64)   # [nvec, 3]
+    live = (vecs != 0).any(axis=1)
+    if not live.any():
+        return pos_now, vec_now, False
+    cos = vecs @ vec_now
+    cabs = np.where(live, np.abs(cos), -np.inf)
+    iv = int(np.argmax(cabs))
+    vec_next = vecs[iv] if cos[iv] > 0 else -vecs[iv]
+    return pos_next, vec_next, True
+
+
+def stream_micro_new_point(pos_now, vec_now, work: StreamWork):
+    """One microscopy cone-search propagation step on the host.
+    (reference: src/stream.jl:547-619, exported as
+    `stream_micro_new_point!`)
+
+    Returns (pos_next [3], vec_next [3], ok): pos_next is the chosen
+    search-window voxel (integer coordinates, like the reference's jump),
+    vec_next the sign-aligned orientation there.  A copy of
+    fibers_tpu.tract.stream.stream_micro_new_point."""
+    from .modes import _micro_search_dist, _search_window
+
+    pos_now = np.asarray(pos_now, np.float64)
+    vec_now = np.asarray(vec_now, np.float64)
+    nx, ny, nz = work.shape3
+
+    win = getattr(work, "_micro_window", None)
+    if win is None:
+        win = work._micro_window = _search_window(_micro_search_dist(work))
+    win_off, win_dir = win
+
+    pos_next = pos_now + vec_now * float(work.step_size)
+    inext = np.round(pos_next).astype(int)
+    if not ((0 <= inext[0] < nx) and (0 <= inext[1] < ny)
+            and (0 <= inext[2] < nz)):
+        return pos_now, vec_now, False
+    if not work.mask_array[tuple(inext)]:
+        return pos_now, vec_now, False
+
+    search_cos = float(np.cos(np.radians(work.cfg.search_ang)))
+    cells = inext[None, :] + win_off                       # [W, 3]
+    inb = ((cells >= 0) & (cells < np.array([nx, ny, nz]))).all(axis=1)
+    cand = np.where(inb)[0]
+    cand = cand[work.mask_array[tuple(cells[cand].T)]]
+    cand = cand[(win_dir[cand] @ vec_now) > search_cos]
+    if len(cand) == 0:
+        return pos_now, vec_now, False
+
+    wvec = work.ovec_arr[tuple(cells[cand].T)][:, 0, :].astype(np.float64)
+    cos = wvec @ vec_now
+    ib = int(np.argmax(np.abs(cos)))
+    if not np.isfinite(cos[ib]):
+        return pos_now, vec_now, False
+    vec_next = wvec[ib] if cos[ib] > 0 else -wvec[ib]
+    return cells[cand[ib]].astype(np.float64), vec_next, True
+
+
 def _check_ported(cfg: StreamConfig):
     if cfg.wire not in ("auto", "f32", "i8", "i6"):
         raise ValueError(f"Unknown wire mode {cfg.wire!r} "
@@ -504,8 +643,10 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
 
     Points are exact float32 (`wire="auto"`/"f32", or `exact_points`).
     `device` places a host orientation field (None: cuda when available);
-    `DevicePeaks` stay where they are.  The LCM and microscopy modes, the
-    quantized point wires and `mesh=` are not ported yet and raise.
+    `DevicePeaks` stay where they are.  `lcms=` runs the probabilistic LCM
+    mode and a voxel size <= 0.05 mm the microscopy mode (tract/modes.py),
+    both from host volumes only.  The quantized point wires and `mesh=`
+    are not ported yet and raise.
     """
     del odf
     work = StreamWork(ovec, f=f, fa=fa, mask=mask, cfg=cfg, device=device,
@@ -513,21 +654,15 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     cfg = work.cfg
     _check_ported(cfg)
     if lcms is not None or work.domicro:
-        raise NotImplementedError(
-            "stream: the LCM and microscopy modes are not ported yet "
-            "(ROADMAP A11)")
-    mask_array = work.mask_array
-
-    # seed voxels (reference: src/stream.jl:743-754)
-    if seed is None:
-        seed_idx = np.argwhere(mask_array)
-    else:
-        svol = seed.vol if seed.vol.ndim == 3 else seed.vol[..., 0]
-        if svol.shape != mask_array.shape:
-            raise ValueError(
-                f"Dimension mismatch between seed mask {svol.shape} and "
-                f"brain mask {mask_array.shape}")
-        seed_idx = np.argwhere(svol > 0)
+        if work.device_peaks is not None:
+            raise ValueError("device-resident peaks drive the "
+                             "deterministic engine only; pass host "
+                             "volumes for LCM/microscopy modes")
+        from .modes import stream_lcm, stream_micro
+        if lcms is not None:
+            return stream_lcm(work, seed, lcms)
+        return stream_micro(work, seed)
+    seed_idx = _seed_voxels(work.mask_array, seed)
 
     # sub-voxel jitter: nsub offsets shared by all seed voxels, the same
     # draw as the reference's jax.random.uniform (utils/prng.py)

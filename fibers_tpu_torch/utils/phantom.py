@@ -9,13 +9,22 @@ the two in step; PHANTOM_VERSION is bench.py's.
 benchmarks/bench_models.py (`_geometry`, `_signal`, `_mri_of` and the
 config-4 b-table of `bench_rumba`, lines 27-65 and 143-169), which
 imports jax at its top.  Keep the two in step as well.
+
+`make_dsi_brain` is a copy of config 3's phantom, `bench_dsi` of the same
+file (lines 91-123): the `dsi_qgrid` q-space ball on `_geometry`'s field.
+
+`make_micro_field` and `make_lcm_field` are inputs for the microscopy and
+LCM tractography modes: smooth in-plane orientation fields, with no
+counterpart in the benchmarks.
 """
 
 import numpy as np
 
 from fibers_tpu.core.mri import MRI
 
-__all__ = ["PHANTOM_VERSION", "make_brain", "make_rumba_brain"]
+__all__ = ["PHANTOM_VERSION", "make_brain", "make_rumba_brain",
+           "make_dsi_brain", "dsi_qgrid", "make_micro_field",
+           "make_lcm_field"]
 
 PHANTOM_VERSION = 3
 
@@ -115,15 +124,23 @@ def _geometry(shape):
 
 def _signal(mask, ax, bval, bvec, rng):
     """Single-fibre tensor signal (lambda_par 1.7e-3, lambda_perp 0.3e-3),
-    s0 = 100, Rician-like noise of sigma 2 inside the mask."""
+    s0 = 100, Rician-like noise of sigma 2 inside the mask.
+
+    Bit for bit the volume of bench_models.py's `_signal`, which computes
+    every voxel and draws the noise of the whole volume at once; here the
+    noise is drawn one x-slab at a time (the same stream, in the same
+    order) and the signal is computed in the mask only, where the
+    reference keeps it, which takes ~40% of the time at config 3's size."""
     lp, lt = 1.7e-3, 0.3e-3
-    dots = np.einsum("xyzi,vi->xyzv", ax, bvec.astype(np.float32))
-    quad = lt + (lp - lt) * dots ** 2
-    vol = (100.0 * np.exp(-bval[None, None, None, :] * quad)).astype(
-        np.float32)
-    vol *= mask[..., None]
-    vol = np.abs(vol + 2.0 * rng.standard_normal(vol.shape).astype(
-        np.float32) * mask[..., None])
+    vol = np.zeros(mask.shape + (len(bval),), np.float32)
+    b32 = bvec.astype(np.float32)
+    for x in range(mask.shape[0]):
+        noise = rng.standard_normal(vol.shape[1:]).astype(np.float32)
+        m = mask[x]
+        dots = np.einsum("mi,vi->mv", ax[x][m], b32)
+        quad = lt + (lp - lt) * dots ** 2
+        sig = (100.0 * np.exp(-bval[None, :] * quad)).astype(np.float32)
+        vol[x][m] = np.abs(sig + 2.0 * noise[m])
     return vol
 
 
@@ -164,3 +181,102 @@ def make_rumba_brain(small=False, seed=0):
     maskm = MRI.like(dwi, 1, np.float32)
     maskm.vol = mask.astype(np.float32)
     return dwi, maskm, ax
+
+
+def dsi_qgrid(radius=5):
+    """Cartesian q-space sampling within a ball, DSI-style: b scales with
+    |q|^2 (reference grid layout: src/dsi.jl:61-85)."""
+    r = np.arange(-radius, radius + 1)
+    gx, gy, gz = np.meshgrid(r, r, r, indexing="ij")
+    q = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float64)
+    keep = (q ** 2).sum(axis=1) <= radius ** 2
+    q = q[keep]
+    bmax = 8000.0
+    norm = np.sqrt((q ** 2).sum(axis=1))
+    # exact grid consistency: bvec*sqrt(bval) lands on integer multiples
+    bvec = np.where(norm[:, None] > 0,
+                    q / np.maximum(norm, 1e-30)[:, None], 0.0)
+    bval = (q ** 2).sum(axis=1) * (bmax / radius ** 2)
+    return bval.astype(np.float32), bvec.astype(np.float32)
+
+
+def make_dsi_brain(small=False, seed=0):
+    """The DSI phantom of config 3: 96^3 on the q-space ball of radius 5
+    (515 samples; small: 32x32x20 and radius 3, 123 samples), the
+    single-fibre field of `_geometry`.
+
+    Returns (dwi MRI, mask MRI, true fibre axis [nx, ny, nz, 3])."""
+    rng = np.random.default_rng(seed)
+    shape = (32, 32, 20) if small else (96, 96, 96)
+    bval, bvec = dsi_qgrid(3 if small else 5)
+    mask, ax = _geometry(shape)
+    vol = _signal(mask, ax, bval, bvec, rng)
+    dwi = _mri_of(vol, shape, bval, bvec)
+    maskm = MRI.like(dwi, 1, np.float32)
+    maskm.vol = mask.astype(np.float32)
+    return dwi, maskm, ax
+
+
+def _in_plane(shape, volres):
+    """A smooth in-plane angle field (radians, in (-pi/2, pi/2)) on an
+    [X, Y, Z] grid with voxel size `volres`, and its MRI wrapper."""
+    nx, ny, nz = shape
+    x, y = np.meshgrid(np.linspace(-1, 1, nx), np.linspace(-1, 1, ny),
+                       indexing="ij")
+    ang = (0.6 * np.sin(1.7 * x + 0.4) + 0.5 * y).astype(np.float32)
+    ang = np.repeat(ang[..., None], nz, axis=2)
+    m = MRI(vol=ang)
+    m.vox2ras0 = np.diag(list(volres) + [1.0]).astype(np.float32)
+    m.volsize = np.asarray(shape)
+    m.width, m.height, m.depth = shape
+    m.nframes = 1
+    m.set_geometry()
+    return ang, m
+
+
+def make_micro_field(shape=(256, 256, 2)):
+    """Microscopy-mode input: in-plane fibre angles (radians) on 10 um
+    voxels in-plane and 20 um through-plane (the largest voxel size marks
+    the through-plane axis), inside a disc mask.
+
+    Returns (angle MRI [X, Y, Z], mask MRI)."""
+    ang, m = _in_plane(shape, (0.01, 0.01, 0.02))
+    nx, ny, _ = shape
+    x, y = np.meshgrid(np.linspace(-1, 1, nx), np.linspace(-1, 1, ny),
+                       indexing="ij")
+    disc = np.repeat(((x ** 2 + y ** 2) < 0.9)[..., None], shape[2], axis=2)
+    mask = MRI.like(m, 1, np.float32)
+    mask.vol = disc.astype(np.float32)
+    return m, mask
+
+
+def make_lcm_field(shape=(256, 256), seed=0):
+    """LCM-mode input on one slice: two in-plane orientation volumes (the
+    field of `_in_plane` and its perpendicular, as 3-vectors with a zero
+    z component, so z is the through-plane axis) and a [X, Y, 1, 10] LCM
+    volume.  The LCM favours the straight connection across the voxel
+    along its fibre (edge pairs (-x, +x) and (-y, +y) weighted by cos^2
+    and sin^2 of the angle), gives the turns random weights in
+    [0.1, 0.25) (above `stream`'s default lcm_thresh of 0.099) and the
+    returns through the entry edge none.
+
+    Returns ([ovec MRI, ovec MRI], lcm MRI, mask MRI)."""
+    rng = np.random.default_rng(seed)
+    ang, m = _in_plane(tuple(shape) + (1,), (1.0, 1.0, 1.0))
+    c, s = np.cos(ang), np.sin(ang)
+    z = np.zeros_like(c)
+    ovecs = []
+    for v in (np.stack([c, s, z], -1), np.stack([-s, c, z], -1)):
+        o = MRI.like(m, 3, np.float32)
+        o.vol = v.astype(np.float32)
+        ovecs.append(o)
+    lcm = (0.1 + 0.15 * rng.random(tuple(shape) + (1, 10))).astype(
+        np.float32)
+    lcm[..., 2] = c * c          # (-x, +x)
+    lcm[..., 6] = s * s          # (-y, +y)
+    lcm[..., [0, 4, 7, 9]] = 0.0    # (e, e): back out through the entry
+    lcmm = MRI.like(m, 10, np.float32)
+    lcmm.vol = lcm
+    mask = MRI.like(m, 1, np.float32)
+    mask.vol = np.ones(tuple(shape) + (1,), np.float32)
+    return ovecs, lcmm, mask

@@ -1,22 +1,24 @@
-"""NumPy Threefry-2x32, bit-compatible with `jax.random` for the one draw
-the tractography driver needs.
+"""NumPy Threefry-2x32, bit-compatible with `jax.random` for the draws
+the tractography drivers need.
 
 `stream` jitters its seeds by `nsub` sub-voxel offsets drawn as
 `jax.random.uniform(jax.random.PRNGKey(seed), (nsub, 3),
 minval=-0.5 + 1e-6, maxval=0.5 - 1e-6)` (fibers_tpu/tract/stream.py:
-1113-1116).  The port must not import jax, and streamlines only match the
-reference when the offsets match bit for bit, so the draw is reproduced
-here: the default `threefry2x32` implementation in its partitionable
-layout (`jax_threefry_partitionable=True`, the default since jax 0.5),
-where element i of the output takes the counter pair (hi, lo) of the
-64-bit flat index i and keeps `bits1 ^ bits2`.
+1113-1116); the LCM mode first splits the key and draws them from the
+second half (fibers_tpu/tract/modes.py:218-223).  The port must not
+import jax, and streamlines only match the reference when the offsets
+match bit for bit, so the draws are reproduced here: the default
+`threefry2x32` implementation in its partitionable layout
+(`jax_threefry_partitionable=True`, the default since jax 0.5), where
+element i of the output takes the counter pair (hi, lo) of the 64-bit
+flat index i and keeps `bits1 ^ bits2`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["prng_key", "threefry2x32", "random_bits", "uniform"]
+__all__ = ["prng_key", "threefry2x32", "random_bits", "split", "uniform"]
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -48,14 +50,25 @@ def prng_key(seed: int):
     return (np.uint32(0), np.uint32(np.int64(seed) & 0xFFFFFFFF))
 
 
+def _counter_words(n):
+    """(hi, lo) uint32 words of the 64-bit flat indices 0..n-1."""
+    i = np.arange(n, dtype=np.uint64)
+    return ((i >> np.uint64(32)).astype(np.uint32),
+            (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
 def random_bits(key, shape):
     """32-bit random words of `shape` (partitionable counter layout)."""
-    n = int(np.prod(shape))
-    i = np.arange(n, dtype=np.uint64)
-    hi = (i >> np.uint64(32)).astype(np.uint32)
-    lo = (i & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    b0, b1 = threefry2x32(key, hi, lo)
+    b0, b1 = threefry2x32(key, *_counter_words(int(np.prod(shape))))
     return (b0 ^ b1).reshape(shape)
+
+
+def split(key, num=2) -> np.ndarray:
+    """`jax.random.split(key, num)`: [num, 2] uint32 keys.  In the
+    partitionable layout key i is the word pair that threefry2x32 makes
+    of the counter pair (hi, lo) of i, both words kept."""
+    b0, b1 = threefry2x32(key, *_counter_words(int(num)))
+    return np.stack([b0, b1], axis=1)
 
 
 def uniform(key, shape, minval=0.0, maxval=1.0) -> np.ndarray:

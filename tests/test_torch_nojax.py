@@ -1,8 +1,9 @@
 """The PyTorch port never imports jax.
 
 The test process has jax loaded already (conftest.py), so the check runs
-in a fresh interpreter: import the port, run DTI, GQI, RUMBA-SD and
-tractography on a tiny phantom, and look at sys.modules.
+in a fresh interpreter: import the port, run DTI, GQI, RUMBA-SD, DSI, the
+structure tensor, the deterministic, LCM and microscopy tractography and
+the CLI on tiny phantoms, and look at sys.modules.
 """
 
 import os
@@ -29,6 +30,22 @@ assert tr.n_count > 0
 rum = tt.rumba_rec(dwi, mask, tt.sphere_362, niter=3, device="cpu")
 tr2 = tt.stream(tt.peaks_to_ovecs(rum, device=True), mask=mask)
 assert np.isfinite(rum.gfa.vol).all() and tr2.n_count > 0
+from fibers_tpu_torch.utils.phantom import (make_dsi_brain, make_lcm_field,
+                                            make_micro_field)
+ddwi, dmask, _ = make_dsi_brain(small=True)
+dsi = tt.dsi_rec(ddwi, dmask, tt.sphere_362, device="cpu")
+assert np.isfinite(dsi.qa[0].vol).all()
+evec, evals = tt.st_recon(dwi.vol.mean(axis=3), 1.0, 2.0, device="cpu")
+assert np.isfinite(evals).all()
+ovecs, lcm, lmask = make_lcm_field((12, 12))
+assert tt.stream(ovecs, mask=lmask, lcms=lcm, device="cpu").n_scalars == 1
+mov, mmask = make_micro_field((12, 12, 2))
+assert tt.stream(mov, mask=mmask, nsub=0, device="cpu").n_count > 0
+from fibers_tpu_torch.__main__ import main
+import os, tempfile
+with tempfile.TemporaryDirectory() as d:
+    tt.mri_write(dmask, os.path.join(d, "m.nii.gz"))
+    assert main(["info", os.path.join(d, "m.nii.gz")]) == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib"))
 print("JAX_MODULES", bad)

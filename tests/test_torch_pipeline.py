@@ -121,11 +121,74 @@ def test_write_results(tmp_path):
         assert os.path.isfile(f"{base}_{f}.nii.gz"), f
 
 
-@pytest.mark.parametrize("name", ["dsi_write", "dsi_rec", "st_recon",
-                                  "stream_new_line", "stream_new_point"])
-def test_unported_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tt, name)
+def _reference_names():
+    """Every public name of fibers_tpu/__init__.py: its imports and the
+    names its lazy `__getattr__` resolves."""
+    import ast
+    import pathlib
+    src = (pathlib.Path(ft.__file__)).read_text()
+    names = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.Compare) and \
+                isinstance(node.left, ast.Name) and node.left.id == "name":
+            for c in node.comparators:
+                for e in ast.walk(c):
+                    if isinstance(e, ast.Constant) and isinstance(e.value,
+                                                                  str):
+                        names.add(e.value)
+    return sorted(n for n in names if not n.startswith("_")
+                  and n != "annotations")
+
+
+@pytest.mark.parametrize("name", _reference_names())
+def test_every_reference_name_resolves(name):
+    """The port resolves every public name of the JAX package; none
+    raises NotImplementedError any more."""
+    assert getattr(tt, name) is not None
+
+
+def _mesh_cases():
+    """One call per entry point that takes `mesh=` and was ported
+    without it."""
+    from test_dsi import make_dsi_phantom
+    from test_torch_modes import _lcm_corridor
+
+    def st_recon():
+        tt.st_recon(np.ones((4, 4, 4), np.float32), 1.0, 1.0, mesh=object(),
+                    device="cpu")
+
+    def dsi_rec():
+        dwi, mask, _ = make_dsi_phantom(shape=(2, 2, 2))
+        tt.dsi_rec(dwi, mask, mesh=object(), device="cpu")
+
+    def stream_lcm():
+        ov, mask, seed, lcmm = _lcm_corridor()
+        tt.stream(ov, mask=mask, seed=seed, lcms=lcmm, mesh=object(),
+                  device="cpu")
+
+    def cli(tmp_path):
+        from fibers_tpu_torch.__main__ import main
+        dwi, mask, _, _ = make_phantom(shape=(3, 3, 3), ndir=12)
+        dp, mp = str(tmp_path / "d.nii.gz"), str(tmp_path / "m.nii.gz")
+        tt.mri_write(dwi, dp)
+        tt.mri_write(mask, mp)
+        main(["pipeline", dp, mp, str(tmp_path / "out"), "--mesh", "2"])
+
+    return {"st_recon": st_recon, "dsi_rec": dsi_rec,
+            "stream_lcm": stream_lcm, "cli": cli}
+
+
+@pytest.mark.parametrize("entry", ["st_recon", "dsi_rec", "stream_lcm",
+                                   "cli"])
+def test_mesh_raises_naming_a13(entry, tmp_path):
+    fn = _mesh_cases()[entry]
+    with pytest.raises(NotImplementedError, match="A13"):
+        fn(tmp_path) if entry == "cli" else fn()
 
 
 def test_device_resolution():

@@ -35,6 +35,17 @@ def test_threefry_jitter_is_bit_exact(seed, nsub):
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
+@pytest.mark.parametrize("seed", [0, 3, 12345, 2**31 - 1, -5])
+@pytest.mark.parametrize("num", [1, 2, 7, 300])
+def test_threefry_split_is_bit_exact(seed, num):
+    """split equals jax.random.split word for word (the LCM driver's key
+    schedule, fibers_tpu/tract/modes.py:218-243)."""
+    got = prng.split(prng.prng_key(seed), num)
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    assert got.dtype == want.dtype == np.uint32
+    assert np.array_equal(got, want)
+
+
 def test_threefry_raw_bits_match_jax():
     key = prng.prng_key(42)
     got = prng.random_bits(key, (4, 5))
