@@ -20,12 +20,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   card-against-CPU checks on small inputs.  These paths run none of the
   hand-written kernels; their launch counts must stay 0.
 
-Every phase raises on failure.  It imports no jax; without a CUDA device
-it fails.
+Every phase raises on failure.  It imports no jax and nothing of the JAX
+package `fibers_tpu`; without a CUDA device it fails.
 
 Output: one line per phase with its wall time; then a JSON line with the
-kernel records, the `nvidia-smi` name and power limit, and as the last
-line `{"ok": true, "device": {...}}`.
+kernel records (launches on the path, error against the plain version,
+kernel, plain and bound times), the `nvidia-smi` name and power limit,
+and as the last line `{"ok": true, "device": {...}}`.
 """
 
 import json
@@ -51,7 +52,19 @@ KERNELS = [
     ("tv_2slice", "fibers_tpu_torch/csrc/tv_stencil.cu",
      "benchmarks/exp_tv_variants.py:99", False),
 ]
-TV_TOL = dict(rtol=1e-6, atol=1e-6)     # tests/test_tv_pallas.py:155
+# the card's peaks for the bounds (H100 SXM data sheet): HBM bytes/s and
+# FP32 FLOP/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+# floating-point operations of one TV multiplier element, counting sqrt and
+# divide as one each: the gradient (3 differences, 3 squares, 3 adds, sqrt,
+# 1/norm, 3 products) and the output (3 differences, 2 adds, product,
+# subtraction, abs, add, divide)
+TV_FLOPS = 14 + 10
+# shapes that cut the TV sweep kernels' 8 x 8 (y, z) tiles and 32-wide
+# component chunks raggedly (tests/test_torch_tv.py:RAGGED)
+TV_RAGGED = [(1, 9, 11, 7), (2, 17, 10, 33), (5, 12, 19, 364), (3, 8, 8, 33),
+             (2, 3, 5, 7), (4, 20, 9, 364)]
 
 
 def check(cond, msg):
@@ -123,13 +136,15 @@ def phase_build():
     t0 = time.time()
     _build.load_library()
     log(f"[build] {time.time() - t0:.2f} s (nvcc into {_build.build_dir()})")
+    # ptxas -v: each kernel's registers, shared memory and spills
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry function" in line):
             log(f"[build]   {line.strip()}")
 
 
 def _tables(sphere):
-    from fibers_tpu.core.odf import half_sphere
+    from fibers_tpu_torch.core.odf import half_sphere
     from fibers_tpu_torch.ops.peaks import build_neighbors
     _, _, faces0 = half_sphere(sphere)
     return build_neighbors(faces0, sphere.nvert_half)
@@ -140,7 +155,7 @@ def phase_kernel():
     and maxdeg = 7.  Returns the record of the main-path shape."""
     import numpy as np
     import torch
-    from fibers_tpu.core.odf import sphere_642, sphere_724
+    from fibers_tpu_torch.core.odf import sphere_642, sphere_724
     from fibers_tpu_torch.models.gqi import gqi_design
     from fibers_tpu_torch.ops.kernels.gqi_fused import (gqi_fused,
                                                         gqi_fused_plain)
@@ -171,6 +186,9 @@ def phase_kernel():
         line = (f"[kernel] N={n} nvol={s.shape[1]} nvert={sphere.nvert_half}"
                 f" maxdeg={nbr.shape[1]}: max|odf-plain|={err:.3g} ok")
         if record is None:
+            # s, the table and the neighbours in; ODF, peak mask, stats out
+            nbytes = sum(x.nbytes for x in (*dev, odf, pm, st))
+            flops = 2 * n * s.shape[1] * sphere.nvert_half       # s @ A_t
             del odf, pm, st, odf_p, st_p
             gqi_fused(*dev)
             gqi_fused_plain(*dev)
@@ -182,7 +200,8 @@ def phase_kernel():
             ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
             line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
                      f"(turns {', '.join(f'{t:.3f}' for t in turns)})")
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          **bound_ms(nbytes, flops))
         log(line)
         del dev
         torch.cuda.empty_cache()
@@ -194,7 +213,7 @@ def _seed_mask(mask, target_seeds):
     """Seed voxels subsampled so nsub=3 jitters give ~target_seeds streams
     (as bench.py)."""
     import numpy as np
-    from fibers_tpu.core.mri import MRI
+    from fibers_tpu_torch.core.mri import MRI
     seed = MRI.like(mask, 1, np.float32)
     idx = np.flatnonzero(mask.vol > 0)
     pick = idx[np.linspace(0, len(idx) - 1,
@@ -326,21 +345,43 @@ def phase_small():
           f"stream counts card {n_g} vs cpu {n_c}")
 
 
-def hold(name, fn, plain, reps, record=False):
-    """Kernel `fn()` against `plain()` on the card within TV_TOL; with
-    `reps`, also time both in turns plain / kernel / kernel / plain.
-    Returns {max_abs_err, ms, plain_ms} (times None without reps)."""
+def bound_ms(nbytes, flops):
+    """The least time of a function on the card: its bytes (each input
+    read once, each output written once) over the HBM rate, or its FP32
+    operations over the FP32 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def copy_ms(nbytes, reps):
+    """Device time of `out.copy_(src)` moving `nbytes` in all (half read,
+    half written): the bandwidth the card reaches, as a yardstick for a
+    kernel that moves as many bytes.  Not the same function."""
+    import torch
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    out = torch.empty_like(src)
+    out.copy_(src)
+    ms = cuda_ms(lambda: out.copy_(src), reps)
+    del src, out
+    return ms
+
+
+def hold(name, fn, plain, reps, nbytes=0):
+    """Kernel `fn()` against `plain()` on the card: bit-equal
+    (`torch.equal`).  With `reps`, also time both in turns plain / kernel
+    / kernel / plain, and a copy of the kernel's `nbytes`.  Returns
+    {max_abs_err, ms, plain_ms, copy_ms} (times None without reps)."""
     import torch
     out = fn()
     torch.cuda.synchronize()
     ref = plain()
     err = float((out - ref).abs().max())
-    equal = torch.equal(out, ref)
-    torch.testing.assert_close(out, ref, **TV_TOL)
+    check(torch.equal(out, ref),
+          f"{name}: kernel differs from its plain version by {err}")
     del out, ref
-    rec = dict(max_abs_err=err, ms=None, plain_ms=None)
-    line = (f"[tv] {name}: max|kernel-plain|={err:.3g}"
-            f"{' (bit-equal)' if equal else ''}")
+    rec = dict(max_abs_err=err, ms=None, plain_ms=None, copy_ms=None)
+    line = f"[tv] {name}: bit-equal to plain"
     if reps:
         fn()
         plain()
@@ -348,35 +389,57 @@ def hold(name, fn, plain, reps, record=False):
         turns = [cuda_ms(f, reps) for f in (plain, fn, fn, plain)]
         rec["ms"] = (turns[1] + turns[2]) / 2
         rec["plain_ms"] = (turns[0] + turns[3]) / 2
+        rec["copy_ms"] = copy_ms(nbytes, reps)
         line += (f"; kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f}"
-                 f" ms (turns {', '.join(f'{t:.3f}' for t in turns)})")
+                 f" ms (turns {', '.join(f'{t:.3f}' for t in turns)}); "
+                 f"copy of its {nbytes / 1e9:.3f} GB {rec['copy_ms']:.3f} "
+                 "ms (not the same function)")
     log(line)
     torch.cuda.empty_cache()
     return rec
+
+
+def _ragged_cells(shape3, rng):
+    """Mask cells of a crop with an empty x-slice, a whole 8 x 8 tile
+    outside the mask in every slice, and a random rest
+    (tests/test_torch_tv.py:ragged_mask)."""
+    import numpy as np
+    m = rng.random(shape3) < 0.6
+    if shape3[0] > 2:
+        m[1] = False
+    m[:, :8, 8:16] = False
+    return np.flatnonzero(m)
 
 
 def phase_tv(mask):
     """The four TV kernels against their plain versions: at RUMBA's shapes
     (config-4 crop 128x128x90, C = 364, the 715,200-row fODF table), at
     the TV experiment's (128x130x90x128), and at ragged ones.  Returns the
-    records at RUMBA's shapes, each as its path gives it the kernel."""
+    records at RUMBA's shapes, each as its path gives it the kernel, with
+    its bound."""
     import numpy as np
     import torch
-    from fibers_tpu.ops.masked import mask_indices
     from fibers_tpu_torch.models.rumba import _tv_bbox
     from fibers_tpu_torch.ops.kernels.tv_fused import (build_tables,
                                                        tv_fused,
                                                        tv_fused_plain)
-    from fibers_tpu_torch.ops.kernels.tv_stencil import (tv_multiplier,
+    from fibers_tpu_torch.ops.kernels.tv_stencil import (rn_selfcheck,
+                                                         tv_multiplier,
                                                          tv_multiplier_plain)
     from fibers_tpu_torch.ops.kernels.tv_variants import (tv_2slice,
                                                           tv_2slice_plain,
                                                           tv_dimsem,
                                                           tv_dimsem_plain)
+    from fibers_tpu_torch.ops.masked import mask_indices
     dense_kernels = (("tv_multiplier", tv_multiplier, tv_multiplier_plain),
                      ("tv_dimsem", tv_dimsem, tv_dimsem_plain),
                      ("tv_2slice", tv_2slice, tv_2slice_plain))
     t0 = time.time()
+    bad = rn_selfcheck()
+    log(f"[tv] the sweep kernels' branch-free sqrt and 1/x against "
+        f"__fsqrt_rn and __fdiv_rn over all 2^32 floats: {bad} mismatches "
+        f"({time.time() - t0:.2f} s)")
+    check(bad == 0, "the sweep kernels' rounding differs from IEEE's")
     cuda = torch.device("cuda")
     idx = mask_indices(mask.vol)
     shape3, nxyz, idx_tv, _ = _tv_bbox(idx, mask.vol.shape[:3])
@@ -387,24 +450,32 @@ def phase_tv(mask):
     tabs = build_tables(idx_tv, shape3, cuda)
     out = torch.ones_like(rows)
     log(f"[tv] RUMBA shapes: crop {shape3}, C={C}, {len(idx)} rows")
-    records = {"tv_fused": hold(
+    # rows in, multiplier rows out, lam and the cell -> row table in
+    nbytes = 2 * rows.nbytes + lam.nbytes + tabs.cellrow.nbytes
+    records = {"tv_fused": dict(hold(
         f"tv_fused rows {tuple(rows.shape)}",
         lambda: tv_fused(rows, lam, tabs, out),
-        lambda: tv_fused_plain(rows, lam, tabs), 5)}
+        lambda: tv_fused_plain(rows, lam, tabs), 5, nbytes),
+        **bound_ms(nbytes, TV_FLOPS * rows.numel()))}
     dense = torch.zeros((nxyz, C), dtype=torch.float32, device=cuda)
     dense[torch.from_numpy(idx_tv).to(cuda)] = rows
     dense = dense.reshape(shape3 + (C,))
     del rows, out
     b16 = dense.to(torch.bfloat16)
-    records["tv_multiplier"] = hold(
+    nbytes = b16.nbytes + lam.nbytes + dense.nbytes      # f32 output
+    records["tv_multiplier"] = dict(hold(
         f"tv_multiplier bf16 {tuple(b16.shape)}",
-        lambda: tv_multiplier(b16, lam), lambda: tv_multiplier_plain(b16, lam),
-        3)
+        lambda: tv_multiplier(b16, lam),
+        lambda: tv_multiplier_plain(b16, lam), 3, nbytes),
+        **bound_ms(nbytes, TV_FLOPS * b16.numel()))
     del b16
+    nbytes = 2 * dense.nbytes + lam.nbytes
     for name, fn, plain in dense_kernels:
         rec = hold(f"{name} f32 {tuple(dense.shape)}",
-                   lambda: fn(dense, lam), lambda: plain(dense, lam), 3)
-        records.setdefault(name, rec)
+                   lambda: fn(dense, lam), lambda: plain(dense, lam), 3,
+                   nbytes)
+        records.setdefault(name, dict(
+            rec, **bound_ms(nbytes, TV_FLOPS * dense.numel())))
     del dense
 
     # the TV experiment's shape (exp_tv_variants.py:119-123)
@@ -414,12 +485,12 @@ def phase_tv(mask):
                        device=cuda)
     for name, fn, plain in dense_kernels:
         hold(f"{name} f32 {tuple(v.shape)}", lambda: fn(v, lam_e),
-             lambda: plain(v, lam_e), 3)
+             lambda: plain(v, lam_e), 3, 2 * v.nbytes + lam_e.nbytes)
     del v, lam_e
 
-    # ragged: C = 7, X odd (even for tv_2slice), a random mask
+    # ragged tiles and component chunks, empty slices and tiles of the mask
     rng = np.random.default_rng(3)
-    for shape in ((9, 10, 11, 7), (10, 10, 11, 7)):
+    for shape in TV_RAGGED:
         v = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(cuda)
         lm = torch.from_numpy(rng.uniform(0.001, 0.01, shape[:3]).astype(
@@ -431,7 +502,7 @@ def phase_tv(mask):
         vb = v.to(torch.bfloat16)
         hold(f"tv_multiplier bf16 {shape}", lambda: tv_multiplier(vb, lm),
              lambda: tv_multiplier_plain(vb, lm), 0)
-        cells = np.flatnonzero(rng.random(int(np.prod(shape[:3]))) < 0.6)
+        cells = _ragged_cells(shape[:3], rng)
         r = torch.from_numpy(rng.random((len(cells) + 5, shape[3]),
                                         dtype=np.float32)).to(cuda)
         tb = build_tables(cells, shape[:3], cuda)
@@ -444,7 +515,9 @@ def phase_tv(mask):
 
 def phase_rumba(dwi, mask, ax):
     """Config 4 at full width on the card: RUMBA-SD, 600 iterations,
-    chained into ~1M streams written to a .trk; then a tv_bf16 run."""
+    chained into ~1M streams written to a .trk; then a tv_bf16 run.  The
+    warm run and the two 50-iteration runs take a prepared batch, which
+    skips the host signal route the counted run times."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -452,8 +525,10 @@ def phase_rumba(dwi, mask, ax):
     m = mask.vol > 0
     nmask = int(m.sum())
     t0 = time.time()
-    tt.rumba_rec(dwi, mask, tt.sphere_724, niter=2)         # warm run
+    batch = tt.prepare_batch(dwi, mask, wire="f32")
+    tt.rumba_rec(dwi, mask, tt.sphere_724, niter=2, batch=batch)  # warm
     torch.cuda.synchronize()
+    del batch
     t_warm = time.time() - t0
 
     niter = 600
@@ -514,21 +589,27 @@ def phase_rumba(dwi, mask, ax):
 
     # tv_bf16: the dense stencil kernel on a bf16 stack, against f32
     nb = 50
+    batch = tt.prepare_batch(dwi, mask, wire="f32")
     reset_counts()
+    st_b16, st_f32 = {}, {}
     t1 = time.time()
-    b16 = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=nb, tv_bf16=True)
+    b16 = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=nb, tv_bf16=True,
+                       timings=st_b16, batch=batch)
     torch.cuda.synchronize()
     t_b16 = time.time() - t1
     counts_b16 = read_counts()
     t1 = time.time()
-    f32 = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=nb)
+    f32 = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=nb, timings=st_f32,
+                       batch=batch)
     torch.cuda.synchronize()
     t_f32 = time.time() - t1
     fb, ff = device_values(b16.fodf)[:nmask], device_values(f32.fodf)[:nmask]
     dmax = float((fb - ff).abs().max())
-    log(f"[rumba] tv_bf16 {nb} iterations {t_b16:.3f} s (launches "
-        f"{counts_b16}), f32 {nb} iterations {t_f32:.3f} s; max |dfODF| = "
-        f"{dmax:.3g}")
+    log(f"[rumba] tv_bf16 {nb} iterations {t_b16:.3f} s, "
+        f"{1e3 * st_b16['iterate'] / nb:.3f} ms per iteration (launches "
+        f"{counts_b16}); f32 {nb} iterations {t_f32:.3f} s, "
+        f"{1e3 * st_f32['iterate'] / nb:.3f} ms per iteration; max |dfODF| "
+        f"= {dmax:.3g}")
     check(counts_b16["tv_multiplier"] == nb and counts_b16["tv_fused"] == 0,
           f"the tv_bf16 run launched {counts_b16}")
     torch.testing.assert_close(fb, ff, rtol=0.05, atol=2e-3)
@@ -537,7 +618,7 @@ def phase_rumba(dwi, mask, ax):
 
 def phase_rumba_small():
     """The RUMBA slice on the card and on the CPU, on the small config-4
-    phantom (32x32x20, 32 volumes, 60 iterations)."""
+    phantom (32x32x20, 32 volumes, 30 iterations)."""
     import numpy as np
     import fibers_tpu_torch as tt
     from fibers_tpu_torch.utils.phantom import make_rumba_brain
@@ -548,7 +629,7 @@ def phase_rumba_small():
     out = {}
     for dev in ("cuda", "cpu"):
         t1 = time.time()
-        rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=60, device=dev)
+        rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=30, device=dev)
         tract = tt.stream(tt.peaks_to_ovecs(rum, device=True), mask=mask,
                           seed=seed, nsub=3, wire="f32")
         out[dev] = (rum.fodf.vol, rum.gfa.vol, rum.snr_mean,
@@ -563,7 +644,7 @@ def phase_rumba_small():
     valid = m & (ng > 0) & (nc > 0)
     cos = np.abs((p_g * p_c).sum(-1))[valid] / (ng * nc)[valid]
     same = float((cos >= 1 - 1e-6).mean())
-    log(f"[rumba-small] 32x32x20x32, 60 iterations: card {t_g:.2f} s, cpu "
+    log(f"[rumba-small] 32x32x20x32, 30 iterations: card {t_g:.2f} s, cpu "
         f"{t_c:.2f} s; max|dfODF|={dfodf:.3g} max|dGFA|={dgfa:.3g} "
         f"|dsnr_mean|={dsnr:.3g}; peak 1 equal on {100 * same:.3f}% of "
         f"{int(valid.sum())} voxels; streams card {n_g} cpu {n_c}; phase "
@@ -677,7 +758,7 @@ def phase_structens(vol):
 def _micro_seed(mask):
     """Every other voxel in x and y of the mask."""
     import numpy as np
-    from fibers_tpu.core.mri import MRI
+    from fibers_tpu_torch.core.mri import MRI
     seed = MRI.like(mask, 1, np.float32)
     sv = np.zeros(mask.vol.shape, np.float32)
     sv[::2, ::2] = mask.vol[::2, ::2]
@@ -789,7 +870,7 @@ def phase_cli(dsi_small):
     phantom, two processes on the card at once; each output read back."""
     import numpy as np
     import fibers_tpu_torch as tt
-    from fibers_tpu.core.mri import MRI
+    from fibers_tpu_torch.core.mri import MRI
     from fibers_tpu_torch.utils.phantom import make_dsi_brain
 
     t0 = time.time()
@@ -877,10 +958,14 @@ def main():
     phase_cli(dsi_small)
     log(f"[new phases] {time.time() - t1:.1f} s")
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(m == "fibers_tpu" or m.startswith("fibers_tpu.")
+                  for m in sys.modules), "the JAX package was imported")
     log(f"[done] {time.time() - t0:.1f} s")
+    # no single PyTorch call computes any of the five functions
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=site,
-        launches=launches.get(name, 0), on_path=on_path, **records[name])
+        launches=launches.get(name, 0), on_path=on_path, library_ms=None,
+        **records[name])
         for name, src, site, on_path in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

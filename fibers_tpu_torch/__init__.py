@@ -2,10 +2,11 @@
 for NVIDIA Hopper GPUs.
 
 The JAX package `fibers_tpu` is the reference; this package mirrors its
-layout and public names.  Host code that never touches JAX (I/O, MRI
-volumes, geometry, sphere tables, mask gather/scatter, the native C
-helpers) is shared: imported from `fibers_tpu` and re-exported here.
-Importing this package never imports jax.
+layout and public names.  It imports nothing of it: the host code (I/O,
+MRI volumes, geometry, sphere tables, mask gather/scatter, the native C
+helpers, the viewers) is this package's own copy, at the reference's
+relative paths.  Importing this package never imports jax.  Entry points
+run on the card unless the caller passes `device="cpu"` (device.py).
 
 Every public name of `fibers_tpu` resolves here: the headline pipeline
 (`prepare_batch`, `dti_fit`, `gqi_rec` with its hand-written CUDA kernel,
@@ -17,24 +18,23 @@ A13) and the quantized wires (A14), which raise `NotImplementedError`
 naming their item.
 """
 
-from fibers_tpu.core.geometry import (vox2ras_0to1, vox2ras_tkreg,
-                                      vox2ras_to_orient, vox2ras_to_qform)
-from fibers_tpu.core.mri import MRI, NIfTIHeader
-from fibers_tpu.core.odf import ODF, half_sphere
-from fibers_tpu.core.xform import (Xform, xfm_apply, xfm_compose, xfm_inv,
-                                   xfm_read, xfm_read_mat, xfm_rotate)
-from fibers_tpu.io.bruker import load_bruker
-from fibers_tpu.io.btables import (mri_read_bfiles, mri_read_bfiles_into,
-                                   normalize_bvecs)
-from fibers_tpu.io.dispatch import (mri_read, mri_read_struct, mri_write,
-                                    mri_write_struct)
-from fibers_tpu.io.filename import get_tmp_path, mri_filename
-from fibers_tpu.io.mgh import load_mgh, save_mgh
-from fibers_tpu.io.nifti import load_nifti, load_nifti_hdr, save_nifti
-from fibers_tpu.io.trk import (Tract, str_add, str_merge, str_xform,
-                               trk_read, trk_write)
-from fibers_tpu.utils.coords import (ang2rot, cart2pol, cart2sph, isinmask,
-                                     pol2cart, sph2cart)
+from .core.geometry import (vox2ras_0to1, vox2ras_tkreg, vox2ras_to_orient,
+                            vox2ras_to_qform)
+from .core.mri import MRI, NIfTIHeader
+from .core.odf import ODF, half_sphere
+from .core.xform import (Xform, xfm_apply, xfm_compose, xfm_inv, xfm_read,
+                         xfm_read_mat, xfm_rotate)
+from .io.bruker import load_bruker
+from .io.btables import (mri_read_bfiles, mri_read_bfiles_into,
+                         normalize_bvecs)
+from .io.dispatch import (mri_read, mri_read_struct, mri_write,
+                          mri_write_struct)
+from .io.filename import get_tmp_path, mri_filename
+from .io.mgh import load_mgh, save_mgh
+from .io.nifti import load_nifti, load_nifti_hdr, save_nifti
+from .io.trk import Tract, str_add, str_merge, str_xform, trk_read, trk_write
+from .utils.coords import (ang2rot, cart2pol, cart2sph, isinmask, pol2cart,
+                           sph2cart)
 
 # Reference-spelling alias (Fibers.jl exports `NIfTIheader`)
 NIfTIheader = NIfTIHeader
@@ -55,9 +55,9 @@ _PORTED = {
                                       "stream_micro_new_point",
                                       "peaks_to_ovecs"),
     "fibers_tpu_torch.core.batch": ("VoxelBatch", "prepare_batch"),
-    "fibers_tpu.core.odf": ("sphere_362", "sphere_642", "sphere_724"),
-    "fibers_tpu.viz.show": ("LUT", "color_lut", "info", "disp",
-                            "show_slice", "vol_to_rgb", "view_axes"),
+    "fibers_tpu_torch.core.odf": ("sphere_362", "sphere_642", "sphere_724"),
+    "fibers_tpu_torch.viz.show": ("LUT", "color_lut", "info", "disp",
+                                  "show_slice", "vol_to_rgb", "view_axes"),
 }
 
 def __getattr__(name):
@@ -68,10 +68,10 @@ def __getattr__(name):
             return getattr(importlib.import_module(mod), name)
     if name == "show":
         # the reference overloads Base.show for slice views
-        from fibers_tpu.viz.show import show_slice
+        from .viz.show import show_slice
         return show_slice
     if name == "view":
-        from fibers_tpu.viz.view import view
+        from .viz.view import view
         return view
     raise AttributeError(name)
 

@@ -1,10 +1,11 @@
 """Command-line pipeline runner: `python -m fibers_tpu_torch <command> ...`.
 
-The counterpart of `python -m fibers_tpu` (fibers_tpu/__main__.py): it
-parses with that module's `build_parser`, so the subcommands, positionals,
-options and defaults are the same, and runs them over the PyTorch port.
-Every fit runs on cuda when `torch.cuda.is_available()`, else on
-the CPU.  `--mesh N` with N > 0 raises (multi-device runs are ROADMAP
+The counterpart of `python -m fibers_tpu` (fibers_tpu/__main__.py).
+`build_parser` is a copy of that module's, so the subcommands,
+positionals, options and defaults are the same, plus one top-level
+`--device {cuda,cpu}` (default cuda), this package's counterpart of
+`JAX_PLATFORMS`: every fit runs on the card unless `--device cpu` asks
+for the CPU.  `--mesh N` with N > 0 raises (multi-device runs are ROADMAP
 A13); the reference's default wires (`dsi --wire auto8`,
 `rumba --wire u12`) are accepted and upload exact float32.
 
@@ -15,16 +16,16 @@ A13); the reference's default wires (`dsi --wire auto8`,
     python -m fibers_tpu_torch stream out/gqi GQI --fa out/dti_fa.nii.gz \\
         --mask mask.nii.gz -o out/tracts.trk
     python -m fibers_tpu_torch pipeline dwi.nii.gz mask.nii.gz out/
+    python -m fibers_tpu_torch --device cpu dti dwi.nii.gz mask.nii.gz out/dti
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
 import numpy as np
-
-from fibers_tpu.__main__ import build_parser
 
 
 def _sphere(name: str):
@@ -51,11 +52,11 @@ def _read_pair(dwi_path: str, mask_path: str):
     return tt.mri_read(dwi_path), tt.mri_read(mask_path)
 
 
-def _batch(dwi, mask, mesh, wire):
+def _batch(dwi, mask, mesh, wire, device):
     """Shared gather/upload for fits that take `batch=`."""
     import fibers_tpu_torch as tt
 
-    return tt.prepare_batch(dwi, mask, mesh=mesh, wire=wire)
+    return tt.prepare_batch(dwi, mask, mesh=mesh, wire=wire, device=device)
 
 
 def _outdir(base: str) -> None:
@@ -84,7 +85,7 @@ def cmd_adc(args) -> int:
     import fibers_tpu_torch as tt
 
     dwi, mask = _read_pair(args.dwi, args.mask)
-    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire)
+    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire, args.device)
     adc, s0 = tt.adc_fit(dwi, mask, batch=batch)
     _outdir(args.outbase)
     tt.mri_write(adc, args.outbase + "_adc.nii.gz")
@@ -97,7 +98,7 @@ def cmd_dti(args) -> int:
     import fibers_tpu_torch as tt
 
     dwi, mask = _read_pair(args.dwi, args.mask)
-    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire)
+    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire, args.device)
     dti = tt.dti_fit(dwi, mask, batch=batch)
     _outdir(args.outbase)
     tt.dti_write(dti, args.outbase)
@@ -109,7 +110,7 @@ def cmd_gqi(args) -> int:
     import fibers_tpu_torch as tt
 
     dwi, mask = _read_pair(args.dwi, args.mask)
-    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire)
+    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire, args.device)
     gqi = tt.gqi_rec(dwi, mask, _sphere(args.sphere), sigma=args.sigma,
                      batch=batch)
     _outdir(args.outbase)
@@ -124,7 +125,7 @@ def cmd_dsi(args) -> int:
     dwi, mask = _read_pair(args.dwi, args.mask)
     dsi = tt.dsi_rec(dwi, mask, _sphere(args.sphere),
                      hann_width=args.hann_width, mesh=_mesh(args.mesh),
-                     wire=args.wire)
+                     wire=args.wire, device=args.device)
     _outdir(args.outbase)
     tt.dsi_write(dsi, args.outbase)
     print(f"wrote {args.outbase}_*.nii.gz (DSI)")
@@ -141,7 +142,7 @@ def cmd_rumba(args) -> int:
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
         on_mismatch=args.on_mismatch, signal_wire=args.wire,
-        mesh=_mesh(args.mesh))
+        mesh=_mesh(args.mesh), device=args.device)
     _outdir(args.outbase)
     tt.rumba_write(rec, args.outbase)
     print(f"wrote {args.outbase}_*.nii.gz (RUMBA-SD, snr_mean="
@@ -154,7 +155,7 @@ def cmd_structens(args) -> int:
 
     mri = tt.mri_read(args.vol)
     evec, evals = tt.st_recon(np.asarray(mri.vol), args.sigma, args.rho,
-                              mesh=_mesh(args.mesh))
+                              mesh=_mesh(args.mesh), device=args.device)
     _outdir(args.outbase)
     ev = tt.MRI.like(mri, 9, np.float32)
     ev.vol = evec.reshape(evec.shape[:3] + (9,)).astype(np.float32)
@@ -204,7 +205,7 @@ def cmd_stream(args) -> int:
         ang_thresh=args.ang_thresh, step_size=args.step_size,
         smooth_coeff=args.smooth_coeff, wire=args.wire,
         seed_rng=args.seed_rng, mesh=_mesh(args.mesh),
-        trk_sink=args.output, **kw)
+        trk_sink=args.output, device=args.device, **kw)
     print(f"wrote {args.output} ({tract.n_count} streamlines)")
     return 0
 
@@ -218,7 +219,7 @@ def cmd_pipeline(args) -> int:
     os.makedirs(args.outdir, exist_ok=True)
     base = os.path.join(args.outdir, "")
     mesh = _mesh(args.mesh)
-    batch = _batch(dwi, mask, mesh, args.wire)
+    batch = _batch(dwi, mask, mesh, args.wire, args.device)
 
     dti = tt.dti_fit(dwi, mask, batch=batch)
     tt.dti_write(dti, base + "dti")
@@ -239,15 +240,117 @@ CMDS = {"info": cmd_info, "disp": cmd_disp, "adc": cmd_adc, "dti": cmd_dti,
         "pipeline": cmd_pipeline}
 
 
+def build_parser() -> argparse.ArgumentParser:
+    """A copy of fibers_tpu/__main__.py:build_parser over this module's
+    commands, plus the top-level `--device`."""
+    ap = argparse.ArgumentParser(
+        prog="python -m fibers_tpu_torch",
+        description="Diffusion-MRI pipeline on PyTorch (Fibers.jl "
+                    "rebuild)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="run the fits on the card (default) or the CPU")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    def add(name, fn, help):
+        p = sub.add_parser(name, help=help)
+        p.set_defaults(fn=fn)
+        return p
+
+    p = add("info", cmd_info, "print a volume's header summary")
+    p.add_argument("vol")
+    p.add_argument("--full", dest="headeronly", action="store_false",
+                   help="read the full payload, not just the header")
+
+    p = add("disp", cmd_disp, "render the middle slice in the terminal")
+    p.add_argument("vol")
+    p.add_argument("--mod", help="intensity-modulation volume")
+
+    def fit_parser(name, fn, help, wire_default="auto"):
+        p = add(name, fn, help)
+        p.add_argument("dwi")
+        p.add_argument("mask")
+        p.add_argument("outbase")
+        p.add_argument("--mesh", type=int, default=0,
+                       help="shard over N devices (0 = single device)")
+        p.add_argument("--wire", default=wire_default,
+                       help="host->device signal encoding "
+                            "(auto/u16/u12/u8/f32)")
+        return p
+
+    fit_parser("adc", cmd_adc, "ADC log-linear fit")
+    fit_parser("dti", cmd_dti, "DTI tensor fit + FA/MD/RD maps")
+
+    p = fit_parser("gqi", cmd_gqi, "GQI ODF reconstruction + peaks")
+    p.add_argument("--sphere", default="362")
+    p.add_argument("--sigma", type=float, default=1.25)
+
+    p = fit_parser("dsi", cmd_dsi, "DSI q-space reconstruction",
+                   wire_default="auto8")
+    p.add_argument("--sphere", default="642")
+    p.add_argument("--hann-width", type=int, default=32)
+
+    p = fit_parser("rumba", cmd_rumba, "RUMBA-SD spherical deconvolution",
+                   wire_default="u12")
+    p.add_argument("--sphere", default="724")
+    p.add_argument("--niter", type=int, default=600)
+    p.add_argument("--no-tv", action="store_true",
+                   help="disable TV spatial regularization")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file for resumable fits")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--on-mismatch", default="raise",
+                   choices=("raise", "fresh"))
+
+    p = add("structens", cmd_structens, "structure-tensor reconstruction")
+    p.add_argument("vol")
+    p.add_argument("outbase")
+    p.add_argument("--sigma", type=float, default=1.0)
+    p.add_argument("--rho", type=float, default=2.0)
+    p.add_argument("--mesh", type=int, default=0)
+
+    p = add("stream", cmd_stream, "streamline tractography -> .trk")
+    p.add_argument("peaks",
+                   help="result-struct basename (with a struct type as "
+                        "the 2nd positional) or comma-separated "
+                        "orientation volumes")
+    p.add_argument("struct", nargs="?", default=None,
+                   help="GQI/DSI/RUMBASD: read peaks via "
+                        "mri_read(base, Type)")
+    p.add_argument("-o", "--output", required=True, help=".trk path")
+    p.add_argument("--f", help="comma-separated amplitude volumes")
+    p.add_argument("--fa", help="FA volume for fa_thresh masking")
+    p.add_argument("--mask")
+    p.add_argument("--seed")
+    p.add_argument("--lcm", help="LCM volume (probabilistic mode)")
+    p.add_argument("--f-thresh", type=float, default=0.03)
+    p.add_argument("--fa-thresh", type=float, default=0.1)
+    p.add_argument("--nsub", type=int, default=3)
+    p.add_argument("--len-min", type=int, default=3)
+    p.add_argument("--ang-thresh", type=float, default=45.0)
+    p.add_argument("--step-size", type=float, default=0.5)
+    p.add_argument("--smooth-coeff", type=float, default=0.2)
+    p.add_argument("--seed-rng", type=int, default=0)
+    p.add_argument("--wire", default="auto",
+                   help="point wire encoding (auto/i8/i6/f32)")
+    p.add_argument("--mesh", type=int, default=0)
+
+    p = add("pipeline", cmd_pipeline,
+            "DTI+GQI fits + whole-brain tractography (the e2e flow)")
+    p.add_argument("dwi")
+    p.add_argument("mask")
+    p.add_argument("outdir")
+    p.add_argument("--sphere", default="362")
+    p.add_argument("--nsub", type=int, default=3)
+    p.add_argument("--mesh", type=int, default=0)
+    p.add_argument("--wire", default="auto")
+
+    return ap
+
+
 def main(argv=None) -> int:
-    # The reference's parser (jax-free host code) gives the subcommands,
-    # options and defaults; dispatch goes to this module's commands by
-    # name, never to the reference's `fn` defaults.
-    ap = build_parser()
-    ap.prog = "python -m fibers_tpu_torch"
-    ap.description = "Diffusion-MRI pipeline on PyTorch (Fibers.jl rebuild)"
-    args = ap.parse_args(argv)
-    return CMDS[args.command](args)
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

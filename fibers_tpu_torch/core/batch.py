@@ -14,9 +14,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fibers_tpu.ops.masked import mask_indices, padded_size
-
 from ..device import resolve
+from ..ops.masked import mask_indices, padded_size
 
 __all__ = ["VoxelBatch", "prepare_batch"]
 

@@ -11,21 +11,24 @@
 // tv_multiplier), lam [X, Y, Z] f32.  Output: the [X, Y, Z, C] f32 TV
 // multiplier.  The arithmetic is tv_common.cuh's.
 //
-// What bounds it on an H100: per output element the kernel reads 13 stack
-// values (the cell and its neighbours) and writes one float, and does 4
-// square roots and 5 divides.  Neighbouring threads take neighbouring
-// components, so every read of a warp is one contiguous row segment, and
-// the +-y and +-x neighbours of a row are rows the block's neighbours read
-// too: the repeated reads are meant to hit L1/L2, leaving device memory
-// one read of the stack and one write of the output (2.15 GB + 2.15 GB at
-// RUMBA's 128x128x90x364 crop, ~1.3 ms at 3.35 TB/s).  What it reaches is
-// in PERF.md.
+// tv_multiplier runs tv_common.cuh's x-sweep (`sweep_kernel`): a block
+// stages each slice of an 8 x 8 (y, z) tile and its halo, 32 components
+// wide, into shared memory with cp.async and computes each normalised
+// gradient once, carrying gn.x of the previous slice in registers.  What
+// bounds it on an H100: device memory needs one read of the stack and one
+// write of the output (1.07 GB + 2.15 GB at RUMBA's bf16 128x128x90x364
+// crop, ~0.96 ms at 3.35 TB/s); per element it does ~1.25 square roots
+// and ~2.25 IEEE divides (the halo's gradients included), so the
+// arithmetic is of the same order.  What it reaches is in PERF.md.
 //
-// tv_dimsem walks the grid with the component axis outermost
-// (blockIdx.y = a 32-wide component chunk): the ported form of declaring
-// that TPU grid axis parallel.  tv_2slice computes two x-slices per
-// thread, sharing the normalised gradient of the lower slice between
-// them, with the experiment's three divides by the norm; X must be even.
+// The experiment variants keep the first port's design, one thread per
+// (cell, component) through `tv::cell_multiplier`, recomputing the 4
+// gradients a cell needs from its 13 neighbours.  tv_dimsem walks the grid
+// with the component axis outermost (blockIdx.y = a 32-wide component
+// chunk): the ported form of declaring that TPU grid axis parallel.
+// tv_2slice computes two x-slices per thread, sharing the normalised
+// gradient of the lower slice between them, with the experiment's three
+// divides by the norm; X must be even.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,51 +38,15 @@
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ float load(const T* p, long i);
-
-template <>
-__device__ __forceinline__ float load<float>(const float* p, long i)
-{
-    return __ldg(p + i);
-}
-
-template <>
-__device__ __forceinline__ float load<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                     long i)
-{
-    return __bfloat162float(p[i]);
-}
-
-template <typename T>
+// The f32 stack read by the experiment variants.
 struct Dense {
-    const T* v;
+    const float* v;
     int Y, Z, C, c;
     __device__ __forceinline__ float operator()(int x, int y, int z) const
     {
-        return load(v, (((long)x * Y + y) * Z + z) * C + c);
+        return __ldg(v + (((long)x * Y + y) * Z + z) * C + c);
     }
 };
-
-// One thread per (cell, component), component fastest.
-template <typename T>
-__global__ void __launch_bounds__(tv::kThreads)
-tv_dense_kernel(const T* __restrict__ v, const float* __restrict__ lam,
-                float* __restrict__ out, int X, int Y, int Z, int C)
-{
-    const long total = (long)X * Y * Z * C;
-    for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += (long)gridDim.x * blockDim.x) {
-        const int c = (int)(i % C);
-        const long cell = i / C;
-        const int z = (int)(cell % Z);
-        const int y = (int)((cell / Z) % Y);
-        const int x = (int)(cell / ((long)Y * Z));
-        const Dense<T> val{v, Y, Z, C, c};
-        out[i] = tv::cell_multiplier<sizeof(T) == 2, false>(
-            val, x, y, z, X, Y, Z, __ldg(lam + cell));
-    }
-}
 
 constexpr int kChunk = 32;   // components per chunk in tv_dimsem
 
@@ -98,7 +65,7 @@ tv_dimsem_kernel(const float* __restrict__ v, const float* __restrict__ lam,
         const int z = (int)(cell % Z);
         const int y = (int)((cell / Z) % Y);
         const int x = (int)(cell / ((long)Y * Z));
-        const Dense<float> val{v, Y, Z, C, c};
+        const Dense val{v, Y, Z, C, c};
         out[cell * C + c] = tv::cell_multiplier<false, false>(
             val, x, y, z, X, Y, Z, __ldg(lam + cell));
     }
@@ -117,7 +84,7 @@ tv_2slice_kernel(const float* __restrict__ v, const float* __restrict__ lam,
         const int z = (int)(rest % Z);
         const int y = (int)((rest / Z) % Y);
         const int x0 = 2 * (int)(rest / ((long)Y * Z));
-        const Dense<float> val{v, Y, Z, C, c};
+        const Dense val{v, Y, Z, C, c};
         auto grad = [&](int qx, int qy, int qz) {
             const float vq = val(qx, qy, qz);
             const float vx = qx + 1 < X ? val(qx + 1, qy, qz) : vq;
@@ -142,6 +109,28 @@ tv_2slice_kernel(const float* __restrict__ v, const float* __restrict__ lam,
     }
 }
 
+// Self-check of the branch-free rounding helpers against the intrinsics:
+// bit patterns [lo, hi) through sqrt_fast where sqrt_in holds, and
+// rcp_fast where rcp_in holds; counts the mismatches into `bad`.
+__global__ void rn_selfcheck_kernel(unsigned long long lo,
+                                    unsigned long long hi,
+                                    unsigned long long* bad)
+{
+    unsigned long long n = 0;
+    for (unsigned long long i = lo + (unsigned long long)blockIdx.x *
+                                          blockDim.x + threadIdx.x;
+         i < hi; i += (unsigned long long)gridDim.x * blockDim.x) {
+        const float v = __uint_as_float((unsigned)i);
+        if (tv::sqrt_in(v) && __float_as_uint(tv::sqrt_fast(v)) !=
+                                  __float_as_uint(__fsqrt_rn(v)))
+            ++n;
+        if (tv::rcp_in(v) && __float_as_uint(tv::rcp_fast(v)) !=
+                                 __float_as_uint(__fdiv_rn(1.0f, v)))
+            ++n;
+    }
+    if (n) atomicAdd(bad, n);
+}
+
 unsigned blocks_for(long work)
 {
     const long b = (work + tv::kThreads - 1) / tv::kThreads;
@@ -159,16 +148,22 @@ extern "C" {
 int tv_multiplier_launch(const void* v, int bf16, const float* lam,
                          float* out, int X, int Y, int Z, int C, void* stream)
 {
-    const long total = (long)X * Y * Z * C;
-    if (total <= 0) return (int)cudaSuccess;
     const cudaStream_t s = (cudaStream_t)stream;
     if (bf16)
-        tv_dense_kernel<__nv_bfloat16><<<blocks_for(total), tv::kThreads, 0,
-                                         s>>>(
-            (const __nv_bfloat16*)v, lam, out, X, Y, Z, C);
-    else
-        tv_dense_kernel<float><<<blocks_for(total), tv::kThreads, 0, s>>>(
-            (const float*)v, lam, out, X, Y, Z, C);
+        return tv::sweep_launch<__nv_bfloat16, false>(
+            (const __nv_bfloat16*)v, lam, nullptr, out, X, Y, Z, C, s);
+    return tv::sweep_launch<float, false>((const float*)v, lam, nullptr, out,
+                                          X, Y, Z, C, s);
+}
+
+// Mismatches of tv_common.cuh's branch-free sqrt and 1/x against
+// __fsqrt_rn and __fdiv_rn over the bit patterns [lo, hi), added to *bad
+// (device memory).
+int tv_rn_selfcheck(unsigned long long lo, unsigned long long hi,
+                    unsigned long long* bad, void* stream)
+{
+    rn_selfcheck_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(
+        lo, hi, bad);
     return (int)cudaGetLastError();
 }
 

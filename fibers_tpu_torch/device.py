@@ -1,9 +1,11 @@
 """Device resolution for the port's public entry points.
 
-Every entry point takes `device=`.  `None` resolves once per process, to
-`cuda` when `torch.cuda.is_available()` and to `cpu` otherwise; the
-choice is recorded in `resolved` so a run can report where it ran.
-Nothing here changes global state.
+Every entry point takes `device=`.  None means the card: `cuda`, and a
+`RuntimeError` when `torch.cuda.is_available()` is false.  The CPU runs
+only when the caller asks for it with `device="cpu"` (`--device cpu` on
+the command line).  An entry point handed tensors that already lie on a
+device (a `VoxelBatch`, `DevicePeaks`) follows them instead.  Nothing
+here changes global state.
 
 Precision: the reference runs its GEMMs at `Precision.HIGHEST`
 (fibers_tpu/models/dti.py:95-105, fibers_tpu/models/gqi.py:87-88), so
@@ -16,17 +18,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve", "resolved"]
-
-resolved = None     # the device `resolve(None)` chose, once it has run
+__all__ = ["resolve"]
 
 
 def resolve(device=None) -> torch.device:
-    """`device` as a torch.device; None -> cuda if available, else cpu."""
-    global resolved
+    """`device` as a torch.device; None -> cuda, or raise without a card."""
     if device is not None:
         return torch.device(device)
-    if resolved is None:
-        resolved = torch.device("cuda" if torch.cuda.is_available()
-                                else "cpu")
-    return resolved
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "fibers_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" (--device cpu on the command "
+            "line) to run on the CPU")
+    return torch.device("cuda")

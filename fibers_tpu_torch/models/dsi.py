@@ -29,14 +29,13 @@ from typing import List
 import numpy as np
 import torch
 
-from fibers_tpu.core.mri import MRI
-from fibers_tpu.core.odf import ODF, half_sphere
-from fibers_tpu.io.dispatch import mri_write_struct
-from fibers_tpu.ops.masked import gather_frames, mask_indices
-
 from ..core.handoff import DevicePeaks
 from ..core.lazy import LazyVolume
+from ..core.mri import MRI
+from ..core.odf import ODF, half_sphere
 from ..device import resolve
+from ..io.dispatch import mri_write_struct
+from ..ops.masked import gather_frames, mask_indices
 from ..ops.peaks import build_neighbors, peak_mask, top_peaks
 
 __all__ = ["DSI", "dsi_rec", "dsi_write"]
@@ -210,7 +209,7 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     come out of the budget).
 
     `batch`: an optional prepared `VoxelBatch`; chunks then slice its
-    rows.  Without one, a CUDA `device` (None: cuda when available) gets
+    rows.  Without one, a CUDA `device` (None: the card) gets
     the masked signals in one upload through `prepare_batch`, and on the
     CPU the chunks slice the gathered host rows, as in the reference.
     `wire`: "auto8" (the default), "auto" and "f32" all upload exact
@@ -232,7 +231,7 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             "dsi_rec(mesh=): multi-device DSI is not ported yet "
             "(ROADMAP A13)")
     if odf_dirs is None:
-        from fibers_tpu.core import odf as _odf
+        from ..core import odf as _odf
         odf_dirs = _odf.sphere_642
 
     def stage(name, t0, dev):

@@ -14,11 +14,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fibers_tpu.core.mri import MRI
-from fibers_tpu.io.dispatch import mri_write_struct
-from fibers_tpu.ops.masked import scatter_frames
-
+from ..core.mri import MRI
+from ..io.dispatch import mri_write_struct
 from ..ops.eig3 import eigh3
+from ..ops.masked import scatter_frames
 
 __all__ = ["DTI", "adc_fit", "dti_fit", "dti_fit_ls", "dti_maps", "dti_write"]
 
@@ -179,7 +178,7 @@ def adc_fit(dwi: MRI, mask: MRI, batch=None, device=None):
     (reference: src/dti.jl:164-213)
 
     `batch`: an optional prepared `VoxelBatch`; without one the batch is
-    gathered onto `device` (None: cuda when available)."""
+    gathered onto `device` (None: the card)."""
     if dwi.bval is None or len(dwi.bval) == 0:
         raise ValueError("Missing b-value table from input DWI structure")
     batch, A, ib0 = _batch_and_tables(

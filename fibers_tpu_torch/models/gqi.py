@@ -18,12 +18,11 @@ from typing import List
 import numpy as np
 import torch
 
-from fibers_tpu.core.mri import MRI
-from fibers_tpu.core.odf import ODF, half_sphere
-from fibers_tpu.io.dispatch import mri_write_struct
-
 from ..core.handoff import DevicePeaks
 from ..core.lazy import LazyVolume
+from ..core.mri import MRI
+from ..core.odf import ODF, half_sphere
+from ..io.dispatch import mri_write_struct
 from ..ops.kernels.gqi_fused import gqi_fused
 from ..ops.peaks import build_neighbors, peak_mask, top_peaks
 
@@ -114,7 +113,7 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     plain PyTorch version on a CPU batch; "kernel" demands the kernel (and
     raises on a CPU batch).  `batch`: an
     optional prepared `VoxelBatch`; without one the batch is gathered
-    onto `device` (None: cuda when available).
+    onto `device` (None: the card).
     """
     if dwi.bval is None or len(dwi.bval) == 0:
         raise ValueError("Missing b-value table from input DWI structure")
@@ -123,7 +122,7 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     if impl not in ("auto", "kernel"):
         raise ValueError(f"Unknown impl {impl!r} (expected auto/kernel)")
     if odf_dirs is None:
-        from fibers_tpu.core import odf as _odf
+        from ..core import odf as _odf
         odf_dirs = _odf.sphere_642
 
     nvert = odf_dirs.nvert_half

@@ -30,17 +30,16 @@ from typing import List
 import numpy as np
 import torch
 
-from fibers_tpu.core.mri import MRI
-from fibers_tpu.core.odf import ODF
-from fibers_tpu.io.dispatch import mri_write_struct
-from fibers_tpu.ops.masked import mask_indices
-from fibers_tpu.utils.coords import ang2rot, cart2sph
-
 from ..core.handoff import DevicePeaks, split_unit_amp
 from ..core.lazy import LazyVolume
+from ..core.mri import MRI
+from ..core.odf import ODF
 from ..device import resolve
+from ..io.dispatch import mri_write_struct
 from ..ops.kernels.tv_fused import build_tables, embed_index, tv_fused
 from ..ops.kernels.tv_stencil import tv_multiplier
+from ..ops.masked import mask_indices
+from ..utils.coords import ang2rot, cart2sph
 
 __all__ = ["RUMBASD", "rumba_rec", "rumba_write", "rumba_peaks",
            "tensor_model", "besseli_ratio", "PaceAbortError"]
@@ -320,7 +319,7 @@ def rumba_peaks(fodf, f_iso, odf_dirs: ODF = None, thr: float = FTHRESH):
     number of valid peaks) as numpy, the API of the reference's
     `rumba_peaks!` (reference: src/rusd.jl:348-373), vectorised."""
     if odf_dirs is None:
-        from fibers_tpu.core import odf as _odf
+        from ..core import odf as _odf
         odf_dirs = _odf.sphere_724
 
     nbr, nbr_ok = _angular_neighbors(odf_dirs)
@@ -469,8 +468,8 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
 
     `batch`: a prepared `VoxelBatch` to reuse one gather and upload; the
     b0 normalisation then runs on its device.  Without one the signal
-    matrix is built on the host and uploaded to `device` (None: cuda when
-    available) once, in exact f32.  `signal_wire` is accepted for API
+    matrix is built on the host and uploaded to `device` (None: the card)
+    once, in exact f32.  `signal_wire` is accepted for API
     parity: the reference's u12/u16 upload codecs are not ported (ROADMAP
     A14), so every value uploads exact f32.
 
@@ -513,7 +512,7 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
                          f"got {on_mismatch!r}")
 
     if odf_dirs is None:
-        from fibers_tpu.core import odf as _odf
+        from ..core import odf as _odf
         odf_dirs = _odf.sphere_724
 
     t0 = time.perf_counter()

@@ -117,7 +117,7 @@ def st_recon(vol: np.ndarray, sigma: float, rho: float, lazy: bool = False,
 
     Returns (eigvec [X,Y,Z,3,3], eigval [X,Y,Z,3]), eigenvalues ascending,
     as numpy; with `lazy=True` as `LazyArray`s that stay on `device`
-    (None: cuda when available) until host code reads them.  `mesh=` is
+    (None: the card) until host code reads them.  `mesh=` is
     not ported yet (ROADMAP A13) and raises.
     """
     if mesh is not None:

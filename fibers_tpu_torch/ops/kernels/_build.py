@@ -48,11 +48,11 @@ def build_dir() -> str:
     return os.path.join(_ROOT, "build", "kernels")
 
 
-def _sources():
-    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
-                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+def _sources(csrc):
+    srcs = sorted(glob.glob(os.path.join(csrc, "*.cu"))
+                  + glob.glob(os.path.join(csrc, "*.cuh")))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {_CSRC}")
+        raise RuntimeError(f"no CUDA sources under {csrc}")
     return srcs
 
 
@@ -68,14 +68,16 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _build() -> str:
+def _build(csrc=_CSRC, out_dir=None) -> str:
+    """The library built from the sources under `csrc` into `out_dir`
+    (default `build_dir()`); its path."""
     global build_log
-    srcs = _sources()
+    srcs = _sources(csrc)
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
-    out_dir = build_dir()
+    out_dir = out_dir or build_dir()
     so = os.path.join(out_dir, f"fibers_kernels-{h.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
@@ -128,8 +130,11 @@ def _declare(lib):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         fn.restype = ci
-    lib.tv_fused_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.tv_fused_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.tv_fused_launch.restype = ci
+    u64 = ctypes.c_ulonglong
+    lib.tv_rn_selfcheck.argtypes = [u64, u64, vp, vp]
+    lib.tv_rn_selfcheck.restype = ci
 
 
 def load_library():

@@ -153,8 +153,7 @@ def tv_fused(rows, lam3, tabs: FusedTVTables, out=None):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = lib.tv_fused_launch(
             rows.data_ptr(), lam3.data_ptr(), tabs.cellrow.data_ptr(),
-            tabs.rowcell.data_ptr(), out.data_ptr(), tabs.nmask, X, Y, Z,
-            rows.shape[1], stream)
+            out.data_ptr(), X, Y, Z, rows.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"tv_fused: kernel launch failed with cudaError "
                            f"{err} (rows {tuple(rows.shape)}, crop "

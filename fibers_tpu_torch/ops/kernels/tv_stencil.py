@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tv_multiplier", "tv_multiplier_plain", "stencil_plain"]
+__all__ = ["tv_multiplier", "tv_multiplier_plain", "stencil_plain",
+           "rn_selfcheck"]
 
 
 def _forward_diff(v, dim):
@@ -121,3 +122,22 @@ def tv_multiplier(vol4, lam3):
 
 
 tv_multiplier.launches = 0
+
+
+def rn_selfcheck(device="cuda") -> int:
+    """The number of float bit patterns on which the sweep kernels'
+    branch-free square root and reciprocal (csrc/tv_common.cuh:
+    `sqrt_fast`, `rcp_fast`) differ from `__fsqrt_rn` and
+    `__fdiv_rn(1, x)`, over all 2^32 patterns, each where the kernels use
+    it.  0: the kernels round as the IEEE intrinsics everywhere."""
+    from ._build import load_library
+    lib = load_library()
+    dev = torch.device(device)
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tv_rn_selfcheck(0, 1 << 32, bad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rn_selfcheck: launch failed with cudaError "
+                           f"{err}")
+    return int(bad.item())

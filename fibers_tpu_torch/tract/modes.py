@@ -28,8 +28,7 @@ import sys
 import numpy as np
 import torch
 
-from fibers_tpu.io.trk import Tract
-
+from ..io.trk import Tract
 from ..utils.prng import prng_key, split, uniform
 from .stream import (_drive, _flat_index, _pick_by_angle, _seed_state,
                      _seed_voxels, _smooth_dir)

@@ -36,11 +36,10 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from fibers_tpu.core.mri import MRI
-from fibers_tpu.io.trk import Tract, TrkSink
-
 from ..core.handoff import DevicePeaks
+from ..core.mri import MRI
 from ..device import resolve
+from ..io.trk import Tract, TrkSink
 from ..utils.prng import prng_key, uniform
 
 __all__ = ["stream", "StreamConfig", "StreamWork", "stream_new_line",
@@ -408,7 +407,7 @@ class StreamWork:
 
     `ovec` is a `DevicePeaks` (the field is built where the peaks live)
     or host orientation MRIs (the field is built on the host and uploaded
-    to `device`, None: cuda when available)."""
+    to `device`, None: the card)."""
 
     def __init__(self, ovec, *, f=None, fa=None, mask=None,
                  cfg: Optional[StreamConfig] = None, device=None, **kwargs):
@@ -642,7 +641,7 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     API parity and ignored, like the reference.
 
     Points are exact float32 (`wire="auto"`/"f32", or `exact_points`).
-    `device` places a host orientation field (None: cuda when available);
+    `device` places a host orientation field (None: the card);
     `DevicePeaks` stay where they are.  `lcms=` runs the probabilistic LCM
     mode and a voxel size <= 0.05 mm the microscopy mode (tract/modes.py),
     both from host volumes only.  The quantized point wires and `mesh=`

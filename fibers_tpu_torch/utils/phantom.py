@@ -20,7 +20,7 @@ counterpart in the benchmarks.
 
 import numpy as np
 
-from fibers_tpu.core.mri import MRI
+from ..core.mri import MRI
 
 __all__ = ["PHANTOM_VERSION", "make_brain", "make_rumba_brain",
            "make_dsi_brain", "dsi_qgrid", "make_micro_field",

@@ -8,6 +8,7 @@ structure-tensor eigenvalues within 1e-5 of the largest
 (test_torch_structens.py), tracts as test_torch_stream.py.
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -17,10 +18,16 @@ import pytest
 
 import fibers_tpu as ft
 from fibers_tpu.__main__ import main as jmain
-from fibers_tpu_torch.__main__ import CMDS, main
+from fibers_tpu_torch.__main__ import CMDS
+from fibers_tpu_torch.__main__ import main as port_main
 
 from phantom import make_phantom
 from test_torch_stream import _compare_tracts
+
+def main(argv):
+    """The port's CLI on the CPU: its default device is the card."""
+    return port_main(["--device", "cpu", *argv])
+
 
 SUBCOMMANDS = ("info", "disp", "adc", "dti", "gqi", "dsi", "rumba",
                "structens", "stream", "pipeline")
@@ -47,6 +54,47 @@ def test_every_subcommand_dispatches_to_the_port():
     assert tuple(CMDS) == SUBCOMMANDS
     for fn in CMDS.values():
         assert fn.__module__ == "fibers_tpu_torch.__main__"
+
+
+def _parser_shape(parser):
+    """Every argument of a parser and of each subcommand's parser: dest,
+    option strings, default, nargs, choices, required, type and action,
+    and the subcommand's defaults other than its `fn`."""
+    def args(p):
+        return [(a.dest, tuple(a.option_strings), a.default, a.nargs,
+                 None if a.choices is None else tuple(a.choices),
+                 a.required, getattr(a.type, "__name__", None),
+                 type(a).__name__)
+                for a in p._actions
+                if not isinstance(a, (argparse._HelpAction,
+                                      argparse._SubParsersAction))]
+
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    shape = {"": args(parser)}
+    for name, p in sub.choices.items():
+        shape[name] = args(p) + [sorted(
+            (k, v) for k, v in p._defaults.items() if k != "fn")]
+    return shape
+
+
+def test_parser_is_the_references_plus_device():
+    """The port's copy of `build_parser` has the reference's subcommands,
+    positionals, options and defaults, and one more top-level option:
+    `--device {cuda,cpu}`, default cuda."""
+    from fibers_tpu.__main__ import build_parser as jparser
+    from fibers_tpu_torch.__main__ import build_parser
+
+    got, want = _parser_shape(build_parser()), _parser_shape(jparser())
+    assert list(got) == list(want) == ["", *SUBCOMMANDS]
+    assert got[""] == want[""] + [("device", ("--device",), "cuda", None,
+                                   ("cuda", "cpu"), False, None,
+                                   "_StoreAction")]
+    for name in SUBCOMMANDS:
+        assert got[name] == want[name], name
+    for name, fn in build_parser()._subparsers._group_actions[0] \
+            .choices.items():
+        assert fn._defaults["fn"] is CMDS[name]
 
 
 def test_help_lists_the_subcommands():

@@ -144,11 +144,11 @@ def test_gqi_rec_matches_jax():
 
 
 def test_gqi_rec_outputs_are_lazy_torch_volumes():
-    from fibers_tpu.core.lazy import LazyVolume as HostLazy
+    from fibers_tpu_torch.core.lazy import LazyVolume
     dwi, mask, _, _ = make_phantom(shape=(4, 4, 4), ndir=12)
     g = tt.gqi_rec(dwi, mask, ft.sphere_362, device="cpu")
     raw = g.odf.__dict__["vol"]
-    assert isinstance(raw, HostLazy)
+    assert isinstance(raw, LazyVolume)
     assert isinstance(raw._values, torch.Tensor)
     assert g.odf.vol.shape == (4, 4, 4, 181)
     assert isinstance(g._peak_dev.vecs, torch.Tensor)

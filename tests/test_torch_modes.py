@@ -27,6 +27,8 @@ import fibers_tpu_torch as tt
 from fibers_tpu_torch.core.handoff import DevicePeaks
 from fibers_tpu_torch.utils.phantom import make_lcm_field, make_micro_field
 
+from test_torch_stream import as_port, as_ref
+
 
 def _mri(vol, volres=(1.0, 1.0, 1.0)):
     m = ft.MRI(vol=np.asarray(vol, np.float32))
@@ -98,8 +100,8 @@ def test_micro_stream_matches_jax_exactly(case):
         ov, mask = make_micro_field((20, 18, 2))
         seed = None
         kw = dict(search_dist=4, nsub=0)
-    tj = ft.stream(ov, mask=mask, seed=seed, wire="f32", **kw)
-    tr = tt.stream(ov, mask=mask, seed=seed, device="cpu", **kw)
+    tj = ft.stream(as_ref(ov), mask=mask, seed=seed, wire="f32", **kw)
+    tr = tt.stream(as_port(ov), mask=mask, seed=seed, device="cpu", **kw)
     assert tr.n_count > 0
     _assert_same_lines(tj, tr)
 
@@ -111,7 +113,7 @@ def test_micro_lines_match_oracle():
     m = mask.vol > 0
     kw = dict(search_dist=2, search_ang=30.0, step_size=1.0,
               ang_thresh=60.0, smooth_coeff=0.0)
-    tr = tt.stream(ov, mask=mask, nsub=0, device="cpu", len_min=1,
+    tr = tt.stream(as_port(ov), mask=mask, nsub=0, device="cpu", len_min=1,
                    len_max=8, **kw)
     vecs = np.asarray(ov.vol)[..., None, :] * m[..., None, None]
     off = np.concatenate([[0], np.cumsum(tr.npts)])
@@ -130,9 +132,9 @@ def test_micro_sink_matches_tract(tmp_path):
     ov, mask, seed = _micro_corridor()
     kw = dict(mask=mask, seed=seed, nsub=0, search_dist=3, len_max=100,
               device="cpu")
-    mem = tt.stream(ov, **kw)
+    mem = tt.stream(as_port(ov), **kw)
     out = str(tmp_path / "micro.trk")
-    tt.stream(ov, trk_sink=out, **kw)
+    tt.stream(as_port(ov), trk_sink=out, **kw)
     back = tt.trk_read(out)
     assert back.n_count == mem.n_count > 0
     np.testing.assert_allclose(back.packed_xyz, mem.packed_xyz, atol=1e-5)
@@ -142,7 +144,7 @@ def test_micro_sink_matches_tract(tmp_path):
 def test_micro_quantized_wires_raise(wire):
     ov, mask, seed = _micro_corridor()
     with pytest.raises(NotImplementedError, match="A14"):
-        tt.stream(ov, mask=mask, seed=seed, wire=wire, device="cpu")
+        tt.stream(as_port(ov), mask=mask, seed=seed, wire=wire, device="cpu")
 
 
 # ------------------------------------------------------------------ #
@@ -187,7 +189,8 @@ def test_new_point_matches_oracle_chain():
     from oracle import stream_line_oracle
 
     v, mask, ovs = _random_two_vec_field()
-    work = tt.StreamWork(ovs, mask=_mask_mri(ovs[0], mask), smooth_coeff=0.0,
+    work = tt.StreamWork(as_port(ovs), mask=_mask_mri(ovs[0], mask),
+                         smooth_coeff=0.0,
                          ang_thresh=90.0, device="cpu")
     ovecs_masked = v * mask[..., None, None]
     seed = np.array([6, 6, 6])
@@ -210,7 +213,7 @@ def test_micro_new_point_matches_oracle_chain():
     v = (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
     mask = np.ones(shape, bool)
     m = _mri(v)
-    work = tt.StreamWork(m, mask=_mask_mri(m, mask), smooth_coeff=0.0,
+    work = tt.StreamWork(as_port(m), mask=_mask_mri(m, mask), smooth_coeff=0.0,
                          ang_thresh=90.0, search_dist=3, search_ang=60.0,
                          step_size=1.0, device="cpu")
     seed = np.array([8, 8, 8])
@@ -232,7 +235,7 @@ def test_single_step_matches_jax(fn):
     v, mask, ovs = _random_two_vec_field()
     kw = dict(mask=_mask_mri(ovs[0], mask), search_dist=2)
     wj = ft.StreamWork(ovs, **kw)
-    wt = tt.StreamWork(ovs, device="cpu", **kw)
+    wt = tt.StreamWork(as_port(ovs), device="cpu", **kw)
     for sv in np.argwhere(mask)[::7]:
         vec = v[tuple(sv)][0]
         pj, vj, okj = getattr(ft, fn)(sv, vec, wj)
@@ -247,7 +250,7 @@ def test_new_line_matches_jax(smooth):
     kw = dict(mask=_mask_mri(ovs[0], mask), smooth_coeff=smooth,
               ang_thresh=80.0)
     wj = ft.StreamWork(ovs, **kw)
-    wt = tt.StreamWork(ovs, device="cpu", **kw)
+    wt = tt.StreamWork(as_port(ovs), device="cpu", **kw)
     for sv, sub in (((6, 6, 6), (0.0, 0.0, 0.0)),
                     ((4, 7, 5), (0.2, -0.3, 0.1)),
                     ((3, 3, 9), (-0.4, 0.4, 0.0))):
@@ -264,7 +267,8 @@ def test_new_line_matches_oracle():
     from oracle import stream_line_oracle
 
     v, mask, ovs = _random_two_vec_field()
-    work = tt.StreamWork(ovs, mask=_mask_mri(ovs[0], mask), device="cpu")
+    work = tt.StreamWork(as_port(ovs), mask=_mask_mri(ovs[0], mask),
+                         device="cpu")
     want = stream_line_oracle(np.array([6, 6, 6]), np.zeros(3),
                               v * mask[..., None, None], mask)
     got = tt.stream_new_line(np.array([6, 6, 6]), np.zeros(3), work)
@@ -277,8 +281,8 @@ def test_new_line_outside_the_mask_matches_jax():
     kw = dict(mask=_mask_mri(ovs[0], mask))
     sv = tuple(np.argwhere(~mask)[0])
     lj = ft.stream_new_line(np.array(sv), np.zeros(3), ft.StreamWork(ovs, **kw))
-    lt = tt.stream_new_line(np.array(sv), np.zeros(3),
-                            tt.StreamWork(ovs, device="cpu", **kw))
+    wt = tt.StreamWork(as_port(ovs), device="cpu", **kw)
+    lt = tt.stream_new_line(np.array(sv), np.zeros(3), wt)
     assert lt.shape == lj.shape
     np.testing.assert_allclose(lt, lj, atol=1e-5)
 
@@ -305,7 +309,8 @@ def test_lcm_propagates_in_plane():
     ov, mask, seed, lcmm = _lcm_corridor()
     seedm = np.zeros(mask.vol.shape, np.float32)
     seedm[8, 8, 0] = 1
-    tr = tt.stream(ov, mask=mask, seed=_mask_mri(ov, seedm), lcms=lcmm,
+    tr = tt.stream(as_port(ov), mask=mask, seed=_mask_mri(ov, seedm),
+                   lcms=lcmm,
                    nsub=0, step_size=1.0, len_max=100, device="cpu")
     assert tr.n_count == 1
     pts = tr.xyz[0].T
@@ -326,7 +331,7 @@ def test_lcm_jitter_matches_jax_bit_for_bit(seed_rng):
     kw = dict(mask=mask, seed=seed, lcms=lcmm, nsub=3, step_size=0.25,
               len_max=6, len_min=1, seed_rng=seed_rng)
     tj = ft.stream(ov, wire="f32", **kw)
-    tr = tt.stream(ov, device="cpu", **kw)
+    tr = tt.stream(as_port(ov), device="cpu", **kw)
 
     def seed_points(t):
         off = np.concatenate([[0], np.cumsum(t.npts)])
@@ -361,7 +366,8 @@ def test_lcm_transition_frequencies():
     lcm[..., 2] = 0.7
     lcm[..., 3] = 0.3
     lcm[..., 6] = 1.0
-    tr = tt.stream([ovx, ovy], mask=_mask_mri(ovx, np.ones(shape, bool)),
+    tr = tt.stream(as_port([ovx, ovy]), mask=_mask_mri(ovx, np.ones(shape,
+                   bool)),
                    seed=_mask_mri(ovx, seedm), lcms=_mri(lcm), nsub=0,
                    step_size=1.0, smooth_coeff=0.0, len_max=300,
                    seed_rng=3, device="cpu")
@@ -386,9 +392,9 @@ def test_lcm_sink_scalars_match_tract(tmp_path):
     ov, mask, seed, lcmm = _lcm_corridor()
     kw = dict(mask=mask, seed=seed, lcms=lcmm, nsub=0, step_size=1.0,
               len_max=100, seed_rng=5, device="cpu")
-    mem = tt.stream(ov, **kw)
+    mem = tt.stream(as_port(ov), **kw)
     out = str(tmp_path / "lcm.trk")
-    ts = tt.stream(ov, trk_sink=out, **kw)
+    ts = tt.stream(as_port(ov), trk_sink=out, **kw)
     back = tt.trk_read(out)
     assert back.n_count == mem.n_count == ts.n_count > 0
     assert back.n_scalars == 1 and mem.n_scalars == 1
@@ -412,7 +418,7 @@ def test_lcm_field_against_jax_in_distribution():
     ovecs, lcm, mask = make_lcm_field((24, 24))
     kw = dict(mask=mask, lcms=lcm, nsub=1, seed_rng=2)
     tj = ft.stream(ovecs, wire="f32", **kw)
-    tr = tt.stream(ovecs, device="cpu", **kw)
+    tr = tt.stream(as_port(ovecs), device="cpu", **kw)
     assert tj.n_count > 300 and abs(tr.n_count / tj.n_count - 1) < 0.03
     assert abs(np.mean(tr.npts) / np.mean(tj.npts) - 1) < 0.05
     fj, fr = tj.packed_scalars.mean(), tr.packed_scalars.mean()
@@ -424,10 +430,10 @@ def test_lcm_empty_seed_set(tmp_path):
     ov, mask, _, lcmm = _lcm_corridor()
     none = _mask_mri(ov, np.zeros(mask.vol.shape, bool))
     out = str(tmp_path / "e.trk")
-    tr = tt.stream(ov, mask=mask, seed=none, lcms=lcmm, device="cpu",
+    tr = tt.stream(as_port(ov), mask=mask, seed=none, lcms=lcmm, device="cpu",
                    trk_sink=out)
     assert tr.n_count == 0 and tt.trk_read(out).n_count == 0
-    tr = tt.stream(ov, mask=mask, seed=none, lcms=lcmm, device="cpu")
+    tr = tt.stream(as_port(ov), mask=mask, seed=none, lcms=lcmm, device="cpu")
     assert tr.n_count == 0 and tr.n_scalars == 1
 
 
@@ -440,7 +446,7 @@ def test_modes_refuse_device_peaks(mode):
     pk = DevicePeaks.from_numpy(np.tile([1.0, 0, 0], (n, 1, 1)),
                                 np.ones((n, 1)), np.arange(n), ref, "cpu")
     with pytest.raises(ValueError, match="deterministic"):
-        tt.stream(pk, mask=mask, lcms=lcmm if mode == "lcm" else None)
+        tt.stream(as_port(pk), mask=mask, lcms=lcmm if mode == "lcm" else None)
 
 
 # ------------------------------------------------------------------ #
@@ -454,12 +460,12 @@ def test_modes_card_matches_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     ov, mask = make_micro_field((40, 36, 2))
-    a = tt.stream(ov, mask=mask, search_dist=4, device="cuda")
-    b = tt.stream(ov, mask=mask, search_dist=4, device="cpu")
+    a = tt.stream(as_port(ov), mask=mask, search_dist=4, device="cuda")
+    b = tt.stream(as_port(ov), mask=mask, search_dist=4, device="cpu")
     _assert_same_lines(a, b)
     ovecs, lcm, lmask = make_lcm_field((32, 32))
-    a = tt.stream(ovecs, mask=lmask, lcms=lcm, device="cuda")
-    b = tt.stream(ovecs, mask=lmask, lcms=lcm, device="cpu")
+    a = tt.stream(as_port(ovecs), mask=lmask, lcms=lcm, device="cuda")
+    b = tt.stream(as_port(ovecs), mask=lmask, lcms=lcm, device="cpu")
     assert b.n_count > 0 and abs(a.n_count / b.n_count - 1) < 0.03
     assert abs(np.mean(a.npts) / np.mean(b.npts) - 1) < 0.05
 
@@ -475,7 +481,7 @@ def test_new_line_card_matches_cpu():
               ang_thresh=80.0)
     lines = [tt.stream_new_line(np.array([4, 7, 5]), np.array([0.2, -0.3,
                                                                0.1]),
-                                tt.StreamWork(ovs, device=dev, **kw))
+                                tt.StreamWork(as_port(ovs), device=dev, **kw))
              for dev in ("cuda", "cpu")]
     assert lines[0].shape[1] > 0
     assert np.array_equal(*lines)

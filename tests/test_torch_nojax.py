@@ -1,9 +1,11 @@
-"""The PyTorch port never imports jax.
+"""The PyTorch port never imports jax, nor the JAX package.
 
 The test process has jax loaded already (conftest.py), so the check runs
 in a fresh interpreter: import the port, run DTI, GQI, RUMBA-SD, DSI, the
-structure tensor, the deterministic, LCM and microscopy tractography and
-the CLI on tiny phantoms, and look at sys.modules.
+structure tensor, the deterministic, LCM and microscopy tractography, the
+volume and .trk writers and the CLI on tiny phantoms, and look at
+sys.modules (tests/test_torch_selfcontained.py reads the same run for
+`fibers_tpu`).
 """
 
 import os
@@ -45,19 +47,33 @@ from fibers_tpu_torch.__main__ import main
 import os, tempfile
 with tempfile.TemporaryDirectory() as d:
     tt.mri_write(dmask, os.path.join(d, "m.nii.gz"))
+    tt.mri_write(dmask, os.path.join(d, "m.mgz"))
+    tt.trk_write(tr, os.path.join(d, "t.trk"))
+    assert tt.trk_read(os.path.join(d, "t.trk")).n_count == tr.n_count
     assert main(["info", os.path.join(d, "m.nii.gz")]) == 0
+    assert main(["--device", "cpu", "structens", os.path.join(d, "m.mgz"),
+                 os.path.join(d, "st")]) == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib"))
+ref = sorted(m for m in sys.modules if m == "fibers_tpu"
+             or m.startswith("fibers_tpu."))
 print("JAX_MODULES", bad)
-sys.exit(1 if bad else 0)
+print("REFERENCE_MODULES", ref)
+sys.exit(1 if bad or ref else 0)
 """
 
 
-def test_port_runs_without_importing_jax():
+def run_child():
+    """Every path of the port in a fresh interpreter; the finished
+    process."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+    return subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
+
+
+def test_port_runs_without_importing_jax():
+    proc = run_child()
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAX_MODULES []" in proc.stdout
 

@@ -18,7 +18,7 @@ import fibers_tpu_torch as tt
 from fibers_tpu_torch.core.handoff import DevicePeaks, split_unit_amp
 
 from phantom import make_phantom
-from test_torch_stream import _compare_tracts
+from test_torch_stream import _compare_tracts, as_port
 
 
 def _run(pkg, dwi, mask, trk, **kw):
@@ -168,16 +168,17 @@ def _mesh_cases():
 
     def stream_lcm():
         ov, mask, seed, lcmm = _lcm_corridor()
-        tt.stream(ov, mask=mask, seed=seed, lcms=lcmm, mesh=object(),
+        tt.stream(as_port(ov), mask=mask, seed=seed, lcms=lcmm, mesh=object(),
                   device="cpu")
 
     def cli(tmp_path):
         from fibers_tpu_torch.__main__ import main
         dwi, mask, _, _ = make_phantom(shape=(3, 3, 3), ndir=12)
         dp, mp = str(tmp_path / "d.nii.gz"), str(tmp_path / "m.nii.gz")
-        tt.mri_write(dwi, dp)
-        tt.mri_write(mask, mp)
-        main(["pipeline", dp, mp, str(tmp_path / "out"), "--mesh", "2"])
+        tt.mri_write(as_port(dwi), dp)
+        tt.mri_write(as_port(mask), mp)
+        main(["--device", "cpu", "pipeline", dp, mp, str(tmp_path / "out"),
+              "--mesh", "2"])
 
     return {"st_recon": st_recon, "dsi_rec": dsi_rec,
             "stream_lcm": stream_lcm, "cli": cli}
@@ -192,11 +193,15 @@ def test_mesh_raises_naming_a13(entry, tmp_path):
 
 
 def test_device_resolution():
+    """None means the card; without one it raises and names the way to
+    ask for the CPU."""
     from fibers_tpu_torch import device
     assert device.resolve("cpu") == torch.device("cpu")
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert device.resolve(None).type == want
-    assert device.resolved.type == want
+    if torch.cuda.is_available():
+        assert device.resolve(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            device.resolve(None)
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
 

@@ -287,12 +287,12 @@ def test_rumba_rec_batch_reuse_matches_jax():
 
 
 def test_rumba_rec_outputs_are_lazy_torch_volumes():
-    from fibers_tpu.core.lazy import LazyVolume as HostLazy
+    from fibers_tpu_torch.core.lazy import LazyVolume
     dwi, mask = _masked_phantom((3, 3, 3))
     rec = tt.rumba_rec(dwi, mask, ft.sphere_362, niter=2, device="cpu")
     raw = rec.fodf.__dict__["vol"]
-    assert isinstance(raw, HostLazy) and isinstance(raw._values,
-                                                    torch.Tensor)
+    assert isinstance(raw, LazyVolume) and isinstance(raw._values,
+                                                      torch.Tensor)
     assert rec.fodf.vol.shape == (3, 3, 3, 181)
     assert len(rec.peak) == 5 and rec.peak[4].vol.shape == (3, 3, 3, 3)
     pk = rec._peak_dev

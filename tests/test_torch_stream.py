@@ -54,6 +54,31 @@ def test_threefry_raw_bits_match_jax():
     assert np.array_equal(got, want)
 
 
+def _rebuild(obj, src, dst):
+    """An MRI of class `src` (or a list of them) rebuilt as class `dst`
+    from its fields; anything else as it is."""
+    if isinstance(obj, (list, tuple)):
+        return [_rebuild(o, src, dst) for o in obj]
+    if not isinstance(obj, src):
+        return obj
+    out = dst.__new__(dst)
+    out.__dict__.update(obj.__dict__)
+    out.vol = np.asarray(obj.vol)
+    return out
+
+
+def as_port(obj):
+    """The reference's MRIs as the port's.  The two packages have their
+    own MRI classes, and `stream` tells one volume from a list, and
+    `mri_write` a volume from a result struct, by its own class."""
+    return _rebuild(obj, ft.MRI, tt.MRI)
+
+
+def as_ref(obj):
+    """The port's MRIs as the reference's."""
+    return _rebuild(obj, tt.MRI, ft.MRI)
+
+
 def _compare_tracts(tj, tt_, min_equal=0.99):
     assert tt_.n_count == tj.n_count
     nj, nt = np.asarray(tj.npts), np.asarray(tt_.npts)
@@ -122,7 +147,7 @@ def test_stream_lines_match_oracle():
     from oracle import stream_line_oracle
 
     ovm, maskm, mask = _smooth_field()
-    tr = tt.stream(ovm, mask=maskm, nsub=0, device="cpu")
+    tr = tt.stream(as_port(ovm), mask=maskm, nsub=0, device="cpu")
     ovecs = np.asarray(ovm.vol)[..., None, :] * mask[..., None, None]
     ref = []
     for sv in np.argwhere(mask):
@@ -140,23 +165,23 @@ def test_stream_lines_match_oracle():
 def test_stream_host_field_with_jitter_matches_jax():
     ovm, maskm, _ = _smooth_field()
     tj = ft.stream(ovm, mask=maskm, nsub=3, seed_rng=3, wire="f32")
-    tr = tt.stream(ovm, mask=maskm, nsub=3, seed_rng=3, device="cpu")
+    tr = tt.stream(as_port(ovm), mask=maskm, nsub=3, seed_rng=3, device="cpu")
     _compare_tracts(tj, tr)
 
 
 def test_stream_chunks_do_not_change_lines():
     ovm, maskm, _ = _smooth_field()
-    a = tt.stream(ovm, mask=maskm, nsub=2, device="cpu")
-    b = tt.stream(ovm, mask=maskm, nsub=2, device="cpu", chunk=97)
+    a = tt.stream(as_port(ovm), mask=maskm, nsub=2, device="cpu")
+    b = tt.stream(as_port(ovm), mask=maskm, nsub=2, device="cpu", chunk=97)
     assert np.array_equal(a.npts, b.npts)
     assert np.array_equal(a.packed_xyz, b.packed_xyz)
 
 
 def test_stream_trk_sink_matches_tract(tmp_path):
     ovm, maskm, _ = _smooth_field()
-    tr = tt.stream(ovm, mask=maskm, nsub=2, device="cpu", chunk=200)
+    tr = tt.stream(as_port(ovm), mask=maskm, nsub=2, device="cpu", chunk=200)
     path = str(tmp_path / "lines.trk")
-    ts = tt.stream(ovm, mask=maskm, nsub=2, device="cpu", chunk=200,
+    ts = tt.stream(as_port(ovm), mask=maskm, nsub=2, device="cpu", chunk=200,
                    trk_sink=path)
     assert ts.n_count == tr.n_count
     assert np.array_equal(ts.npts, tr.npts)
@@ -171,7 +196,8 @@ def test_stream_empty_seed_set(tmp_path):
     seed = ft.MRI.like(maskm, 1, np.float32)
     seed.vol = np.zeros(maskm.vol.shape, np.float32)
     path = str(tmp_path / "empty.trk")
-    tr = tt.stream(ovm, mask=maskm, seed=seed, device="cpu", trk_sink=path)
+    tr = tt.stream(as_port(ovm), mask=maskm, seed=seed, device="cpu",
+                   trk_sink=path)
     assert tr.n_count == 0
     assert tt.trk_read(path).n_count == 0
 
@@ -186,13 +212,13 @@ def test_stream_empty_seed_set(tmp_path):
 def test_stream_unported_options_raise(kw, exc):
     ovm, maskm, _ = _smooth_field()
     with pytest.raises(exc):
-        tt.stream(ovm, mask=maskm, device="cpu", **kw)
+        tt.stream(as_port(ovm), mask=maskm, device="cpu", **kw)
 
 
 def test_stream_exact_points_overrides_quantized_wire():
     ovm, maskm, _ = _smooth_field()
-    a = tt.stream(ovm, mask=maskm, nsub=0, device="cpu")
-    b = tt.stream(ovm, mask=maskm, nsub=0, device="cpu", wire="i8",
+    a = tt.stream(as_port(ovm), mask=maskm, nsub=0, device="cpu")
+    b = tt.stream(as_port(ovm), mask=maskm, nsub=0, device="cpu", wire="i8",
                   exact_points=True)
     assert np.array_equal(a.packed_xyz, b.packed_xyz)
 
@@ -205,7 +231,7 @@ def test_stream_out_of_bounds_seeds_are_guarded():
     sv = np.zeros(maskm.vol.shape, np.float32)
     sv[-1, -1, -1] = sv[-1, 0, 0] = 1
     seed.vol = sv
-    tr = tt.stream(ovm, mask=maskm, seed=seed, nsub=3, device="cpu")
+    tr = tt.stream(as_port(ovm), mask=maskm, seed=seed, nsub=3, device="cpu")
     tj = ft.stream(ovm, mask=maskm, seed=seed, nsub=3, wire="f32")
     _compare_tracts(tj, tr)
 

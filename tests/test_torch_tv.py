@@ -304,3 +304,62 @@ def test_fused_kernel_matches_plain_on_card(cuda, case):
     torch.cuda.synchronize()
     assert tv_fused.launches == before + 1
     torch.testing.assert_close(got, tv_fused_plain(r, lam, tabs), **TOL)
+
+
+# Shapes that cut the sweep kernels' 8 x 8 (y, z) tiles and 32-wide
+# component chunks raggedly: Y and Z not multiples of 8, C in {7, 33, 364}
+# (a 4-byte and a 16-byte row stride for f32; odd C gives bf16 rows no
+# aligned copy at all), X = 1 and X = 2.
+RAGGED = [(1, 9, 11, 7), (2, 17, 10, 33), (5, 12, 19, 364), (3, 8, 8, 33),
+          (2, 3, 5, 7), (4, 20, 9, 364)]
+
+
+def ragged_mask(shape3, seed):
+    """Mask cells of a crop with an empty x-slice, a whole 8 x 8 tile
+    outside the mask in every slice, and a random rest."""
+    rng = np.random.default_rng(seed)
+    m = rng.random(shape3) < 0.6
+    if shape3[0] > 2:
+        m[1] = False
+    m[:, :8, 8:16] = False
+    return np.flatnonzero(m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "fused"])
+@pytest.mark.parametrize("shape", RAGGED, ids=str)
+def test_sweep_kernels_equal_plain_on_ragged_tiles(cuda, shape, kind):
+    """tv_multiplier (f32 and bf16 stacks) and tv_fused are bit-equal to
+    their plain versions where the tiles, chunks and mask are ragged."""
+    v, lam = _stack(shape, 21)
+    ld = torch.from_numpy(lam).to(cuda)
+    if kind == "fused":
+        cells = ragged_mask(shape[:3], 22)
+        rows = np.random.default_rng(23).standard_normal(
+            (len(cells) + 3, shape[3])).astype(np.float32)
+        tabs = build_tables(cells, shape[:3], cuda)
+        rd = torch.from_numpy(rows).to(cuda)
+        out = torch.full_like(rd, 5.0)
+        before = tv_fused.launches
+        got = tv_fused(rd, ld, tabs, out)
+        torch.cuda.synchronize()
+        assert tv_fused.launches == before + 1
+        want = tv_fused_plain(rd, ld, tabs, torch.full_like(rd, 5.0))
+        assert torch.equal(got, want)
+        return
+    vd = torch.from_numpy(v).to(cuda)
+    if kind == "bf16":
+        vd = vd.bfloat16()
+    before = tv_multiplier.launches
+    got = tv_multiplier(vd, ld)
+    torch.cuda.synchronize()
+    assert tv_multiplier.launches == before + 1
+    assert torch.equal(got, tv_multiplier_plain(vd, ld))
+
+
+@pytest.mark.cuda
+def test_branch_free_rounding_equals_the_intrinsics(cuda):
+    """The sweep kernels' sqrt and 1/x equal __fsqrt_rn and __fdiv_rn on
+    every float where the kernels use them (all 2^32 bit patterns)."""
+    from fibers_tpu_torch.ops.kernels.tv_stencil import rn_selfcheck
+    assert rn_selfcheck(cuda) == 0
