@@ -76,10 +76,14 @@ gqi_fused_kernel(const float* __restrict__ sig,
 
     // 1. clamped signals, transposed; ragged rows and k padding are zero.
     //    Lanes run along rows, so the shared-memory stores hit 32 banks.
+    //    The clamp keeps NaN, as jnp.maximum does.
     for (int i = tid; i < nvol_pad * BM; i += THREADS) {
         const int r = i % BM, k = i / BM;
         float v = 0.f;
-        if (r < rows && k < nvol) v = fmaxf(sig[(row0 + r) * nvol + k], 0.f);
+        if (r < rows && k < nvol) {
+            const float x = sig[(row0 + r) * nvol + k];
+            v = x != x ? x : fmaxf(x, 0.f);
+        }
         sT[i] = v;
     }
     __syncthreads();
@@ -131,25 +135,34 @@ gqi_fused_kernel(const float* __restrict__ sig,
     const int tile = rows * nvert;
     for (int i = tid; i < tile; i += THREADS) odf[base + i] = sO[i];
 
-    // 4. strict local maxima over face neighbours
+    // 4. strict local maxima over face neighbours; a NaN amplitude or
+    //    neighbour makes the comparison false, as amax propagates NaN
     for (int i = tid; i < tile; i += THREADS) {
         const int r = i / nvert, v = i - r * nvert;
         const float* o = sO + r * nvert;
         float m = -INFINITY;
+        bool nan = false;
         for (int k = 0; k < maxdeg; ++k) {
             const int e = v * maxdeg + k;
-            if (__ldg(&nbr_ok[e])) m = fmaxf(m, o[__ldg(&nbr[e])]);
+            if (__ldg(&nbr_ok[e])) {
+                const float x = o[__ldg(&nbr[e])];
+                nan |= x != x;
+                m = fmaxf(m, x);
+            }
         }
-        peak[base + i] = o[v] > m ? 1 : 0;
+        peak[base + i] = (!nan && o[v] > m) ? 1 : 0;
     }
 
     // 5. stats: a warp per row for min/mean; warp 0 also takes valid,
-    //    one row per lane
+    //    one row per lane.  min and mean are NaN where the row holds a
+    //    NaN (amin and mean propagate it); such a row is not valid.
     const int warp = tid / 32, lane = tid % 32;
     for (int r = warp; r < rows; r += WARPS) {
         const float* o = sO + r * nvert;
         float mn = INFINITY, sum = 0.f;
+        bool nan = false;
         for (int v = lane; v < nvert; v += 32) {
+            nan |= o[v] != o[v];
             mn = fminf(mn, o[v]);
             sum += o[v];
         }
@@ -157,15 +170,21 @@ gqi_fused_kernel(const float* __restrict__ sig,
             mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
             sum += __shfl_xor_sync(0xffffffffu, sum, off);
         }
+        nan = __any_sync(0xffffffffu, nan);
         if (lane == 0) {
-            stats[(row0 + r) * 3 + 0] = mn;
+            stats[(row0 + r) * 3 + 0] = nan ? NAN : mn;
             stats[(row0 + r) * 3 + 1] = sum / (float)nvert;
         }
     }
     if (warp == 0 && lane < rows) {
         float smax = 0.f;
-        for (int k = 0; k < nvol; ++k) smax = fmaxf(smax, sT[k * BM + lane]);
-        stats[(row0 + lane) * 3 + 2] = smax > 0.f ? 1.f : 0.f;
+        bool nan = false;
+        for (int k = 0; k < nvol; ++k) {
+            const float x = sT[k * BM + lane];
+            nan |= x != x;
+            smax = fmaxf(smax, x);
+        }
+        stats[(row0 + lane) * 3 + 2] = (!nan && smax > 0.f) ? 1.f : 0.f;
     }
 }
 
