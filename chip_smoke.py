@@ -7,8 +7,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 `fibers_tpu_torch/csrc/` and drives every ported path on the card:
 
 - GQI: the kernel against its plain PyTorch version at the main path's
-  shapes; the headline pipeline (prepare_batch -> dti_fit -> gqi_rec ->
-  device peaks -> 1M-seed stream -> .trk) on the HCP-scale phantom; the
+  shapes, with NaN rows, its top-3 and its ODF error against a float64
+  product, timed beside the product alone; the headline pipeline
+  (prepare_batch -> dti_fit -> gqi_rec -> device peaks -> 1M-seed stream
+  -> .trk) on the HCP-scale phantom, with the GQI stage's split; the
   card's slice against the CPU's on a small phantom.
 - RUMBA-SD: the four TV kernels against their plain versions at RUMBA's
   shapes and the TV experiment's; config 4 (600 iterations at full
@@ -52,10 +54,15 @@ KERNELS = [
     ("tv_2slice", "fibers_tpu_torch/csrc/tv_stencil.cu",
      "benchmarks/exp_tv_variants.py:99", False),
 ]
-# the card's peaks for the bounds (H100 SXM data sheet): HBM bytes/s and
-# FP32 FLOP/s outside the tensor cores
+# the GQI kernel's shapes: the main path's N, and a ragged N at maxdeg 6
+# and 7 (sphere, rows); the first is timed
+GQI_SHAPES = (("sphere_642", 720_896), ("sphere_642", 1_000),
+              ("sphere_724", 1_000))
+# the card's peaks for the bounds (H100 SXM data sheet): HBM bytes/s,
+# FP32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 # floating-point operations of one TV multiplier element, counting sqrt and
 # divide as one each: the gradient (3 differences, 3 squares, 3 adds, sqrt,
 # 1/norm, 3 products) and the output (3 differences, 2 adds, product,
@@ -152,56 +159,108 @@ def _tables(sphere):
 
 def phase_kernel():
     """Kernel vs its plain version at the main path's shapes, a ragged N
-    and maxdeg = 7.  Returns the record of the main-path shape."""
+    and maxdeg = 7, each with rows of no signal and rows with a NaN
+    sample.  Returns the record of the main-path shape."""
     import numpy as np
     import torch
-    from fibers_tpu_torch.core.odf import sphere_642, sphere_724
+    from fibers_tpu_torch.core import odf as spheres
     from fibers_tpu_torch.models.gqi import gqi_design
+    from fibers_tpu_torch.ops.kernels._build import load_library
     from fibers_tpu_torch.ops.kernels.gqi_fused import (gqi_fused,
                                                         gqi_fused_plain)
     from fibers_tpu_torch.ops.peaks import peak_mask
     from fibers_tpu_torch.utils.phantom import make_brain
 
     t0 = time.time()
+    lib = load_library()
     probe, _, _ = make_brain(shape=(2, 2, 2))          # the 198-volume table
     rng = np.random.default_rng(1234)
     record = None
-    for sphere, n in ((sphere_642, 720_896), (sphere_642, 1_000),
-                      (sphere_724, 1_000)):
+    for name, n in GQI_SHAPES:
+        sphere = getattr(spheres, name)
         nbr, ok = _tables(sphere)
+        nvol, nvert, maxdeg = len(probe.bval), sphere.nvert_half, nbr.shape[1]
         A_t = np.ascontiguousarray(
             gqi_design(probe.bval, probe.bvec, sphere).T)
-        s = rng.uniform(-5.0, 100.0, (n, len(probe.bval))).astype(np.float32)
+        s = rng.uniform(-5.0, 100.0, (n, nvol)).astype(np.float32)
         s[::251] = -1.0                          # rows with no signal
+        s[5::509, 7] = np.nan                    # rows with a NaN sample
         dev = [torch.from_numpy(x).cuda() for x in (s, A_t, nbr, ok)]
-        odf, pm, st = gqi_fused(*dev)
+        odf, pm, st, vals, idx = gqi_fused(*dev)
         torch.cuda.synchronize()
-        odf_p, _, st_p = gqi_fused_plain(*dev)
-        err = float((odf - odf_p).abs().max())
-        torch.testing.assert_close(odf, odf_p, rtol=1e-5, atol=1e-4)
-        torch.testing.assert_close(st, st_p, rtol=1e-5, atol=1e-4)
+        odf_p, _, st_p, _, _ = gqi_fused_plain(*dev)
+        nan_rows = torch.isnan(dev[0]).any(dim=1)
+        fin = ~nan_rows
+        err = float((odf[fin] - odf_p[fin]).abs().max())
+        torch.testing.assert_close(odf, odf_p, rtol=1e-5, atol=1e-4,
+                                   equal_nan=True)
+        torch.testing.assert_close(st, st_p, rtol=1e-5, atol=1e-4,
+                                   equal_nan=True)
         check(torch.equal(st[:, 2], st_p[:, 2]), "valid flags differ")
+        check(not bool(st[nan_rows, 2].any()) and bool(
+            torch.isnan(odf[nan_rows]).all()),
+              "a row with a NaN sample is valid or has a finite ODF")
         check(torch.equal(pm, peak_mask(odf, dev[2], dev[3])),
               "peak mask differs from the plain rule on the kernel's ODF")
-        line = (f"[kernel] N={n} nvol={s.shape[1]} nvert={sphere.nvert_half}"
-                f" maxdeg={nbr.shape[1]}: max|odf-plain|={err:.3g} ok")
+        masked = torch.where(pm, odf, torch.zeros((), device=odf.device))
+        top_v, top_i = torch.sort(masked, dim=1, descending=True,
+                                  stable=True)
+        check(torch.equal(vals, top_v[:, :3])
+              and torch.equal(idx, top_i[:, :3]),
+              "top-3 differs from a stable sort of the kernel's own ODF "
+              "and mask")
+        del masked, top_v, top_i
+        # both ODFs against a float64 product, rows without NaN
+        ref = torch.matmul(dev[0][fin].clamp_min(0.0).double(),
+                           dev[1].double())
+        e_k = float((odf[fin].double() - ref).abs().max())
+        e_p = float((odf_p[fin].double() - ref).abs().max())
+        del ref
+        check(e_k <= 2 * e_p, f"the kernel's ODF error against float64 "
+              f"{e_k:.3g} exceeds twice the plain f32 product's {e_p:.3g}")
+        line = (f"[kernel] N={n} nvol={nvol} nvert={nvert} maxdeg={maxdeg} "
+                f"({int(nan_rows.sum())} NaN rows; "
+                f"{lib.gqi_fused_rows_per_block(nvol, nvert, maxdeg)} rows "
+                f"and {lib.gqi_fused_smem_bytes(nvol, nvert, maxdeg)} B of "
+                f"shared memory per block): max|odf-plain|={err:.3g}; "
+                f"max|odf-f64| kernel {e_k:.3g}, plain f32 {e_p:.3g}; ok")
         if record is None:
-            # s, the table and the neighbours in; ODF, peak mask, stats out
-            nbytes = sum(x.nbytes for x in (*dev, odf, pm, st))
-            flops = 2 * n * s.shape[1] * sphere.nvert_half       # s @ A_t
-            del odf, pm, st, odf_p, st_p
+            # s, the table and the neighbours in; ODF, mask, stats and
+            # the top-3 out
+            nbytes = sum(x.nbytes for x in (*dev, odf, pm, st, vals, idx))
+            flops = 2 * n * nvol * nvert                          # s @ A_t
+            del odf, pm, st, vals, idx, odf_p, st_p
+            library = lambda: torch.matmul(dev[0].clamp_min(0.0), dev[1])
             gqi_fused(*dev)
             gqi_fused_plain(*dev)
+            library()
             torch.cuda.synchronize()
-            turns = []                       # plain, kernel, kernel, plain
-            for fn in (gqi_fused_plain, gqi_fused, gqi_fused,
-                       gqi_fused_plain):
-                turns.append(cuda_ms(lambda: fn(*dev), 5))
-            ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-            line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-                     f"(turns {', '.join(f'{t:.3f}' for t in turns)})")
+            order = (gqi_fused_plain, gqi_fused, library, library, gqi_fused,
+                     gqi_fused_plain)
+            turns = [cuda_ms((lambda f=fn: f()) if fn is library
+                             else (lambda f=fn: f(*dev)), 5)
+                     for fn in order]
+            ms = (turns[1] + turns[4]) / 2
+            plain_ms = (turns[0] + turns[5]) / 2
+            library_ms = (turns[2] + turns[3]) / 2
+            bound = bound_ms(nbytes, 3 * flops, TF32_FLOP_S)
+            fp32 = bound_ms(nbytes, flops)
+            share = bound["bound_ms"] / ms
+            line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                     f"product alone (torch.matmul, TF32 off) "
+                     f"{library_ms:.3f} ms (turns plain, kernel, product, "
+                     f"product, kernel, plain: "
+                     f"{', '.join(f'{t:.3f}' for t in turns)}); bound "
+                     f"3xTF32 {bound['bound_ms']:.3f} ms by "
+                     f"{bound['bound_by']} ({nbytes / 1e9:.3f} GB, "
+                     f"{3 * flops / 1e9:.1f} GFLOP), share {100 * share:.1f}"
+                     f"%; FP32-FMA bound {fp32['bound_ms']:.3f} ms")
+            check(share <= 1.0, f"the kernel beat its bound ({share:.3f})")
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          **bound_ms(nbytes, flops))
+                          library_ms=library_ms,
+                          library_call="torch.matmul(s.clamp_min(0), A_t), "
+                                       "TF32 off: the product alone",
+                          **bound)
         log(line)
         del dev
         torch.cuda.empty_cache()
@@ -257,6 +316,56 @@ def pipeline(dwi, mask, seed, device, trk):
     return dti, gqi, tract, t
 
 
+def gqi_split(dwi, mask):
+    """The GQI stage of the main path replayed piece by piece on a batch
+    of its own, each piece ending in a synchronize: host set-up
+    (`gqi_design`, `half_sphere`, `build_neighbors`, the table uploads),
+    the kernel (also on CUDA events), the finish (peak vectors, QA,
+    odfmax), and `gqi_rec` whole on the same batch."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.core.odf import half_sphere
+    from fibers_tpu_torch.models.gqi import _finish, gqi_design
+    from fibers_tpu_torch.ops.kernels.gqi_fused import gqi_fused
+    from fibers_tpu_torch.ops.peaks import build_neighbors
+
+    batch = tt.prepare_batch(dwi, mask, wire="f32")
+    torch.cuda.synchronize()
+    sphere, cuda = tt.sphere_642, torch.device("cuda")
+    split = {}
+    for _ in range(2):                       # the second pass is reported
+        t0 = time.perf_counter()
+        A = gqi_design(np.asarray(dwi.bval, np.float32),
+                       np.asarray(dwi.bvec, np.float32), sphere)
+        _, vf, faces0 = half_sphere(sphere)
+        nbr, ok = build_neighbors(faces0, sphere.nvert_half)
+        vf = torch.from_numpy(np.ascontiguousarray(vf)).to(cuda)
+        nb, okd = torch.from_numpy(nbr).to(cuda), torch.from_numpy(ok).to(cuda)
+        A_t = torch.from_numpy(np.ascontiguousarray(A.T)).to(cuda)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        odf, _, st, vals, idx = gqi_fused(batch.signals, A_t, nb, okd)
+        e1.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _finish(odf, vals, idx, vals > 0, st[:, 0], st[:, 1], st[:, 2] > 0,
+                vf)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del odf, st, vals, idx
+        tt.gqi_rec(dwi, mask, sphere, batch=batch)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        split = {"set-up": t1 - t0, "kernel": t2 - t1,
+                 "kernel (events)": e0.elapsed_time(e1) / 1e3,
+                 "finish": t3 - t2, "gqi_rec": t4 - t3}
+    return split
+
+
 def phase_main():
     import numpy as np
     import torch
@@ -285,6 +394,9 @@ def phase_main():
     for name, tt_ in (("run 1", t_warm), ("run 2", t)):
         log(f"[main] {name}: " + ", ".join(f"{k}={v:.3f} s"
                                            for k, v in tt_.items()))
+    split = gqi_split(dwi, mask)
+    log("[main] GQI stage replayed: " + ", ".join(
+        f"{k} {1e3 * v:.3f} ms" for k, v in split.items()))
     log(f"[main] streams={tract.n_count} points={npts} "
         f"gqi_fused.launches={launches} "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
@@ -345,11 +457,13 @@ def phase_small():
           f"stream counts card {n_g} vs cpu {n_c}")
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_s=FP32_FLOP_S):
     """The least time of a function on the card: its bytes (each input
-    read once, each output written once) over the HBM rate, or its FP32
-    operations over the FP32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    read once, each output written once) over the HBM rate, or its
+    operations over the peak of the unit its route runs them on (FP32
+    outside the tensor cores unless `flop_s` says otherwise), whichever
+    is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -961,12 +1075,16 @@ def main():
     check(not any(m == "fibers_tpu" or m.startswith("fibers_tpu.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] {time.time() - t0:.1f} s")
-    # no single PyTorch call computes any of the five functions
-    log(json.dumps({"kernels": [dict(
-        name=name, route="cuda", source=src, replaces=site,
-        launches=launches.get(name, 0), on_path=on_path, library_ms=None,
-        **records[name])
-        for name, src, site, on_path in KERNELS]}))
+    # no single PyTorch call computes any of the five functions; gqi_fused
+    # carries the product alone as its partial yardstick
+    kernels = []
+    for name, src, site, on_path in KERNELS:
+        rec = dict(name=name, route="cuda", source=src, replaces=site,
+                   launches=launches.get(name, 0), on_path=on_path,
+                   library_ms=None)
+        rec.update(records[name])
+        kernels.append(rec)
+    log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 Counterpart of fibers_tpu/models/gqi.py: one [N, nvol] x [nvol, nvert]
 product over the masked voxel batch, the face-neighbour peak mask, and a
-top-k in place of the reference's per-voxel sortperm (reference:
-src/gqi.jl:109-171).  On a CUDA batch the product, the peak mask and the
-per-voxel stats run in one hand-written kernel
+top-3 in place of the reference's per-voxel sortperm (reference:
+src/gqi.jl:109-171).  On a CUDA batch the product, the peak mask, the
+per-voxel stats and the top-3 run in one hand-written kernel
 (ops/kernels/gqi_fused.py); on a CPU batch in plain PyTorch.
 
 Yeh et al. (2010), IEEE TMI 29(9):1626-1635.
@@ -23,12 +23,10 @@ from ..core.lazy import LazyVolume
 from ..core.mri import MRI
 from ..core.odf import ODF, half_sphere
 from ..io.dispatch import mri_write_struct
-from ..ops.kernels.gqi_fused import gqi_fused
-from ..ops.peaks import build_neighbors, peak_mask, top_peaks
+from ..ops.kernels.gqi_fused import NPEAK, gqi_fused
+from ..ops.peaks import build_neighbors, peak_mask
 
 __all__ = ["GQI", "gqi_rec", "gqi_write", "find_peaks", "gqi_design"]
-
-NPEAK = 3
 
 
 @dataclass
@@ -73,18 +71,16 @@ def _finish(odf, vals, idx, pvalid, odfmin, odfmean, valid, verts_first):
     return odf, vecs, qa, valid
 
 
-def _gqi_kernel_fused(signals, A_t, verts_first, nbr, nbr_valid,
-                      npeak=NPEAK):
-    """signals [N, nvol] -> odf [N, nvert], peak vecs [N, npeak, 3], qa
-    [N, npeak] (globally normalised), valid [N].  Product, peak mask and
-    stats come from the fused tile (the CUDA kernel on a CUDA batch, its
-    plain version on a CPU batch), then top-k, peak vectors, QA and the
-    odfmax normalisation."""
-    odf, is_peak, stats = gqi_fused(signals, A_t, nbr, nbr_valid)
+def _gqi_kernel_fused(signals, A_t, verts_first, nbr, nbr_valid):
+    """signals [N, nvol] -> odf [N, nvert], peak vecs [N, 3, 3], qa
+    [N, 3] (globally normalised), valid [N].  Product, peak mask, stats
+    and the top-3 peaks come from the fused tile (the CUDA kernel on a
+    CUDA batch, its plain version on a CPU batch), then peak vectors, QA
+    and the odfmax normalisation."""
+    odf, _, stats, vals, idx = gqi_fused(signals, A_t, nbr, nbr_valid)
     valid = stats[:, 2] > 0
-    vals, idx, pvalid = top_peaks(odf, is_peak, npeak)
-    return _finish(odf, vals, idx, pvalid, stats[:, 0], stats[:, 1], valid,
-                   verts_first)
+    return _finish(odf, vals, idx, vals > 0, stats[:, 0], stats[:, 1],
+                   valid, verts_first)
 
 
 def find_peaks(o, odf_dirs: ODF):

@@ -119,11 +119,14 @@ def _build(csrc=_CSRC, out_dir=None) -> str:
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gqi_fused_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                     ci, ci, ci, ci, vp]
+    lib.gqi_fused_launch.argtypes = [vp] * 10 + [ci, ci, ci, ci, vp]
     lib.gqi_fused_launch.restype = ci
-    lib.gqi_fused_smem_bytes.argtypes = [ci, ci]
+    lib.gqi_fused_smem_bytes.argtypes = [ci, ci, ci]
     lib.gqi_fused_smem_bytes.restype = ctypes.c_long
+    lib.gqi_fused_rows_per_block.argtypes = [ci, ci, ci]
+    lib.gqi_fused_rows_per_block.restype = ci
+    lib.gqi_fused_scratch_bytes.argtypes = [ci, ci]
+    lib.gqi_fused_scratch_bytes.restype = ctypes.c_long
     lib.tv_multiplier_launch.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, vp]
     lib.tv_multiplier_launch.restype = ci
     for name in ("tv_dimsem_launch", "tv_2slice_launch"):
