@@ -11,11 +11,17 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   product, timed beside the product alone; the headline pipeline
   (prepare_batch -> dti_fit -> gqi_rec -> device peaks -> 1M-seed stream
   -> .trk) on the HCP-scale phantom, with the GQI stage's split; the
-  card's slice against the CPU's on a small phantom.
-- RUMBA-SD: the four TV kernels against their plain versions at RUMBA's
-  shapes and the TV experiment's; config 4 (600 iterations at full
-  width) chained into ~1M streams and a .trk; a tv_bf16 run; the card's
-  slice against the CPU's on the small config-4 phantom.
+  card's slice against the CPU's on a small phantom.  Before the timed
+  pipeline, the step loops of the three tractography engines run with
+  CUDA's sync debug mode set to "error": a step that makes the host wait
+  for the card fails the run.
+- RUMBA-SD: the four TV kernels (all instances of one x-sweep) against
+  their plain versions, bit for bit, at RUMBA's shapes, the TV
+  experiment's and ragged ones, after the self-check of their branch-free
+  sqrt, 1/x and a/b against the IEEE intrinsics; config 4 (600
+  iterations at full width) chained into ~1M streams and a .trk; a
+  tv_bf16 run; the card's slice against the CPU's on the small config-4
+  phantom.
 - DSI (config 3 at full width, chained into ~1M streams), the structure
   tensor on config 4's volume, the LCM and microscopy tractography modes
   and the CLI (`python -m fibers_tpu_torch dsi`/`structens`), with their
@@ -69,9 +75,11 @@ TF32_FLOP_S = 495e12
 # subtraction, abs, add, divide)
 TV_FLOPS = 14 + 10
 # shapes that cut the TV sweep kernels' 8 x 8 (y, z) tiles and 32-wide
-# component chunks raggedly (tests/test_torch_tv.py:RAGGED)
+# component chunks raggedly (tests/test_torch_tv.py:RAGGED); the last two
+# (X = 2; X = 4 with Z < 8) are all prologue and epilogue of the two-slice
+# ring
 TV_RAGGED = [(1, 9, 11, 7), (2, 17, 10, 33), (5, 12, 19, 364), (3, 8, 8, 33),
-             (2, 3, 5, 7), (4, 20, 9, 364)]
+             (2, 3, 5, 7), (4, 20, 9, 364), (2, 11, 4, 40), (4, 13, 5, 36)]
 
 
 def check(cond, msg):
@@ -366,12 +374,87 @@ def gqi_split(dwi, mask):
     return split
 
 
+class launches_must_not_sync:
+    """Inside the block, every chunk's propagation (the `launch` that the
+    stream's chunk loop calls) runs with CUDA's sync debug mode set to
+    "error":
+    a blocking copy or an `.item()` between two steps raises.  The
+    compaction and the fetch around a launch wait for the card by design
+    and run as they are.  `made` counts the guarded launches."""
+
+    def __enter__(self):
+        import torch
+        from fibers_tpu_torch.tract import modes, stream as stream_mod
+        self._mods, self._real, self.made = (stream_mod, modes), \
+            stream_mod._drive, 0
+
+        def drive(launch, *args, **kwargs):
+            def guarded(lo):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = launch(lo)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                self.made += 1
+                return out
+            return self._real(guarded, *args, **kwargs)
+
+        for mod in self._mods:
+            mod._drive = drive
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod._drive = self._real
+
+
+def phase_nosync():
+    """The deterministic engine on a small cut of the main path (device
+    peaks of a GQI fit), the LCM and the microscopy engine, every step
+    loop under `launches_must_not_sync`."""
+    import torch
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.utils.phantom import (make_brain, make_lcm_field,
+                                                make_micro_field)
+
+    t0 = time.time()
+    dwi, mask, _ = make_brain(shape=(24, 24, 16), ndir=34)
+    gqi = tt.gqi_rec(dwi, mask, tt.sphere_642)
+    ovecs, lcm, lmask = make_lcm_field((48, 48))
+    mov, mmask = make_micro_field((40, 36, 2))
+    with launches_must_not_sync() as guard:
+        det = tt.stream(tt.peaks_to_ovecs(gqi, device=True).first(1),
+                        mask=mask, nsub=3, f_thresh=0.0, wire="f32",
+                        chunk=4096)
+        n_det = guard.made
+        lcm_t = tt.stream(ovecs, mask=lmask, lcms=lcm)
+        mic = tt.stream(mov, mask=mmask, search_dist=15, **MICRO)
+        # the guard does trip on a blocking copy
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.ones(3, device="cuda").cpu()
+            tripped = False
+        except RuntimeError:
+            tripped = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    log(f"[nosync] step loops under set_sync_debug_mode('error'): "
+        f"{guard.made} chunk launches ({n_det} deterministic, then LCM and "
+        f"micro) without a host sync; streams {det.n_count} / "
+        f"{lcm_t.n_count} / {mic.n_count}; {time.time() - t0:.1f} s")
+    check(tripped, "the sync debug mode did not trip on a blocking copy")
+    check(n_det >= 2 and guard.made >= n_det + 2, "a step loop did not run")
+    check(min(det.n_count, lcm_t.n_count, mic.n_count) > 0,
+          "an engine gave no streamlines under the sync check")
+
+
 def phase_main():
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
     from fibers_tpu_torch.utils.phantom import make_brain
 
+    phase_nosync()
     t0 = time.time()
     dwi, mask, ax = make_brain()
     seed = _seed_mask(mask, 1_000_000)
@@ -538,6 +621,7 @@ def phase_tv(mask):
                                                        tv_fused,
                                                        tv_fused_plain)
     from fibers_tpu_torch.ops.kernels.tv_stencil import (rn_selfcheck,
+                                                         sweep_blocks_per_sm,
                                                          tv_multiplier,
                                                          tv_multiplier_plain)
     from fibers_tpu_torch.ops.kernels.tv_variants import (tv_2slice,
@@ -550,10 +634,16 @@ def phase_tv(mask):
                      ("tv_2slice", tv_2slice, tv_2slice_plain))
     t0 = time.time()
     bad = rn_selfcheck()
-    log(f"[tv] the sweep kernels' branch-free sqrt and 1/x against "
-        f"__fsqrt_rn and __fdiv_rn over all 2^32 floats: {bad} mismatches "
-        f"({time.time() - t0:.2f} s)")
+    log(f"[tv] the sweep kernels' branch-free sqrt, 1/x and a/b against "
+        f"__fsqrt_rn and __fdiv_rn (all 2^32 floats as the argument and as "
+        f"the denominator under 13 numerators, and 2^31 random pairs): "
+        f"{bad} mismatches ({time.time() - t0:.2f} s)")
     check(bad == 0, "the sweep kernels' rounding differs from IEEE's")
+    occupancy = sweep_blocks_per_sm()
+    log("[tv] blocks per SM (occupancy API): " + ", ".join(
+        f"{k} {v}" for k, v in occupancy.items()))
+    check(min(occupancy.values()) >= 1, f"a sweep instance fits no SM: "
+          f"{occupancy}")
     cuda = torch.device("cuda")
     idx = mask_indices(mask.vol)
     shape3, nxyz, idx_tv, _ = _tv_bbox(idx, mask.vol.shape[:3])
@@ -584,12 +674,21 @@ def phase_tv(mask):
         **bound_ms(nbytes, TV_FLOPS * b16.numel()))
     del b16
     nbytes = 2 * dense.nbytes + lam.nbytes
+    f32 = {}
     for name, fn, plain in dense_kernels:
         rec = hold(f"{name} f32 {tuple(dense.shape)}",
                    lambda: fn(dense, lam), lambda: plain(dense, lam), 3,
                    nbytes)
+        f32[name] = rec["ms"]
         records.setdefault(name, dict(
             rec, **bound_ms(nbytes, TV_FLOPS * dense.numel())))
+    # the three f32 sweeps side by side; tv_multiplier's own record is its
+    # bf16 path's, so its f32 time rides along
+    records["tv_multiplier"]["f32_ms"] = f32["tv_multiplier"]
+    bound = records["tv_dimsem"]["bound_ms"]
+    log(f"[tv] f32 {tuple(dense.shape)} side by side: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * bound / v:.1f}% of the {bound:.3f} ms "
+        f"bound)" for k, v in f32.items()))
     del dense
 
     # the TV experiment's shape (exp_tv_variants.py:119-123)

@@ -38,8 +38,8 @@ extern "C" {
 int tv_fused_launch(const float* rows, const float* lam, const int* cellrow,
                     float* out, int X, int Y, int Z, int C, void* stream)
 {
-    return tv::sweep_launch<float, true>(rows, lam, cellrow, out, X, Y, Z, C,
-                                         (cudaStream_t)stream);
+    return tv::Sweep<float, true>::launch(rows, lam, cellrow, out, X, Y, Z, C,
+                                          false, (cudaStream_t)stream);
 }
 
 }  // extern "C"

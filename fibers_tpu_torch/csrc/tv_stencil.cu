@@ -11,24 +11,24 @@
 // tv_multiplier), lam [X, Y, Z] f32.  Output: the [X, Y, Z, C] f32 TV
 // multiplier.  The arithmetic is tv_common.cuh's.
 //
-// tv_multiplier runs tv_common.cuh's x-sweep (`sweep_kernel`): a block
-// stages each slice of an 8 x 8 (y, z) tile and its halo, 32 components
-// wide, into shared memory with cp.async and computes each normalised
-// gradient once, carrying gn.x of the previous slice in registers.  What
-// bounds it on an H100: device memory needs one read of the stack and one
-// write of the output (1.07 GB + 2.15 GB at RUMBA's bf16 128x128x90x364
-// crop, ~0.96 ms at 3.35 TB/s); per element it does ~1.25 square roots
-// and ~2.25 IEEE divides (the halo's gradients included), so the
-// arithmetic is of the same order.  What it reaches is in PERF.md.
+// All three run tv_common.cuh's x-sweep (`sweep_kernel`): a block stages
+// each slice of an 8 x 8 (y, z) tile and its halo, 32 components wide,
+// into shared memory with cp.async and computes each normalised gradient
+// once, carrying gn.x of the previous slice in registers.  What bounds
+// them on an H100: device memory needs one read of the stack and one
+// write of the output (bf16: 1.07 GB + 2.15 GB at RUMBA's 128x128x90x364
+// crop, ~0.96 ms at 3.35 TB/s; f32: 4.30 GB, ~1.28 ms); per element they
+// do ~1.25 square roots and ~2.25 IEEE divides (the halo's gradients
+// included; tv_2slice ~4.75 divides), so the arithmetic is of the same
+// order.  What they reach is in PERF.md.
 //
-// The experiment variants keep the first port's design, one thread per
-// (cell, component) through `tv::cell_multiplier`, recomputing the 4
-// gradients a cell needs from its 13 neighbours.  tv_dimsem walks the grid
-// with the component axis outermost (blockIdx.y = a 32-wide component
-// chunk): the ported form of declaring that TPU grid axis parallel.
-// tv_2slice computes two x-slices per thread, sharing the normalised
-// gradient of the lower slice between them, with the experiment's three
-// divides by the norm; X must be even.
+// What makes each experiment variant a variant, in this card's terms:
+// - tv_dimsem: the component chunk is the slowest block index instead of
+//   the fastest (the experiment's grid (nc, X) with the component axis
+//   outermost and declared parallel).  Same arithmetic as tv_multiplier.
+// - tv_2slice: two x-slices per loop iteration and barrier, gn.x of the
+//   lower slice handed to the upper one in registers, with the
+//   experiment's three divides by the norm; X must be even.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,80 +38,20 @@
 
 namespace {
 
-// The f32 stack read by the experiment variants.
-struct Dense {
-    const float* v;
-    int Y, Z, C, c;
-    __device__ __forceinline__ float operator()(int x, int y, int z) const
-    {
-        return __ldg(v + (((long)x * Y + y) * Z + z) * C + c);
-    }
-};
-
-constexpr int kChunk = 32;   // components per chunk in tv_dimsem
-
-// Component chunk outermost: blockIdx.y picks the chunk, the threads of a
-// block walk cells with the chunk's components fastest.
-__global__ void __launch_bounds__(tv::kThreads)
-tv_dimsem_kernel(const float* __restrict__ v, const float* __restrict__ lam,
-                 float* __restrict__ out, int X, int Y, int Z, int C)
+// 1 if div_in(a, b) holds and div_fast differs from __fdiv_rn, else 0.
+__device__ __forceinline__ unsigned div_differs(float a, float b)
 {
-    const long ncell = (long)X * Y * Z;
-    const int c = blockIdx.y * kChunk + (int)(threadIdx.x % kChunk);
-    if (c >= C) return;
-    const long per_block = tv::kThreads / kChunk;
-    for (long cell = (long)blockIdx.x * per_block + threadIdx.x / kChunk;
-         cell < ncell; cell += (long)gridDim.x * per_block) {
-        const int z = (int)(cell % Z);
-        const int y = (int)((cell / Z) % Y);
-        const int x = (int)(cell / ((long)Y * Z));
-        const Dense val{v, Y, Z, C, c};
-        out[cell * C + c] = tv::cell_multiplier<false, false>(
-            val, x, y, z, X, Y, Z, __ldg(lam + cell));
-    }
-}
-
-// Two x-slices per thread: cells (2i, y, z) and (2i+1, y, z).
-__global__ void __launch_bounds__(tv::kThreads)
-tv_2slice_kernel(const float* __restrict__ v, const float* __restrict__ lam,
-                 float* __restrict__ out, int X, int Y, int Z, int C)
-{
-    const long total = (long)(X / 2) * Y * Z * C;
-    for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += (long)gridDim.x * blockDim.x) {
-        const int c = (int)(i % C);
-        const long rest = i / C;
-        const int z = (int)(rest % Z);
-        const int y = (int)((rest / Z) % Y);
-        const int x0 = 2 * (int)(rest / ((long)Y * Z));
-        const Dense val{v, Y, Z, C, c};
-        auto grad = [&](int qx, int qy, int qz) {
-            const float vq = val(qx, qy, qz);
-            const float vx = qx + 1 < X ? val(qx + 1, qy, qz) : vq;
-            const float vy = qy + 1 < Y ? val(qx, qy + 1, qz) : vq;
-            const float vz = qz + 1 < Z ? val(qx, qy, qz + 1) : vq;
-            return tv::norm_grad<false, true>(vq, vx, vy, vz);
-        };
-        const tv::Grad g0 = grad(x0, y, z);
-        const tv::Grad g1 = grad(x0 + 1, y, z);
-        for (int k = 0; k < 2; ++k) {
-            const int x = x0 + k;
-            const tv::Grad g = k ? g1 : g0;
-            float ddx = g.x, ddy = g.y, ddz = g.z;
-            if (k) ddx = __fsub_rn(ddx, g0.x);
-            else if (x > 0) ddx = __fsub_rn(ddx, grad(x - 1, y, z).x);
-            if (y > 0) ddy = __fsub_rn(ddy, grad(x, y - 1, z).y);
-            if (z > 0) ddz = __fsub_rn(ddz, grad(x, y, z - 1).z);
-            const long cell = ((long)x * Y + y) * Z + z;
-            out[cell * C + c] =
-                tv::multiplier(__ldg(lam + cell), ddx, ddy, ddz);
-        }
-    }
+    if (!tv::div_in(a, b)) return 0;
+    return __float_as_uint(tv::div_fast(a, b, tv::div_rcp(b))) !=
+           __float_as_uint(__fdiv_rn(a, b));
 }
 
 // Self-check of the branch-free rounding helpers against the intrinsics:
-// bit patterns [lo, hi) through sqrt_fast where sqrt_in holds, and
-// rcp_fast where rcp_in holds; counts the mismatches into `bad`.
+// bit patterns [lo, hi) through sqrt_fast where sqrt_in holds, rcp_fast
+// where rcp_in holds, and as the denominator of div_fast, where div_in
+// holds, under a handful of numerators (fixed ones, zeros of both signs,
+// and multiples of the denominator as a gradient component is of its
+// norm); counts the mismatches into `bad`.
 __global__ void rn_selfcheck_kernel(unsigned long long lo,
                                     unsigned long long hi,
                                     unsigned long long* bad)
@@ -127,14 +67,48 @@ __global__ void rn_selfcheck_kernel(unsigned long long lo,
         if (tv::rcp_in(v) && __float_as_uint(tv::rcp_fast(v)) !=
                                  __float_as_uint(__fdiv_rn(1.0f, v)))
             ++n;
+        const float nums[] = {0.0f, -0.0f, 1.0f, -3.1415927f, 1e-3f,
+                              0x1.fffffep-1f, 0x1.8p-63f, 0x1.234568p+40f,
+                              v, __fmul_rn(v, 0.70710677f),
+                              __fmul_rn(v, -0.33333334f),
+                              __fmul_rn(v, 0x1.fffffep-1f),
+                              __fmul_rn(v, 0x1.3c0ca4p-17f)};
+#pragma unroll
+        for (float a : nums) n += div_differs(a, v);
     }
     if (n) atomicAdd(bad, n);
 }
 
-unsigned blocks_for(long work)
+// 32 mixed bits of a 64-bit counter (the splitmix64 finaliser).
+__device__ __forceinline__ unsigned long long mix64(unsigned long long z)
 {
-    const long b = (work + tv::kThreads - 1) / tv::kThreads;
-    return (unsigned)(b < (1L << 30) ? b : (1L << 30));
+    z += 0x9e3779b97f4a7c15ull;
+    z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+    z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+    return z ^ (z >> 31);
+}
+
+// Self-check of div_fast on `npairs` pseudo-random pairs from `seed`: the
+// denominator any float in [2^-12, 2^50), the numerator of either sign
+// and up to 2^40 times smaller, as a gradient component against its norm.
+__global__ void div_selfcheck_kernel(unsigned long long npairs,
+                                     unsigned long long seed,
+                                     unsigned long long* bad)
+{
+    unsigned long long n = 0;
+    for (unsigned long long i = (unsigned long long)blockIdx.x * blockDim.x +
+                                threadIdx.x;
+         i < npairs; i += (unsigned long long)gridDim.x * blockDim.x) {
+        const unsigned long long h = mix64(seed + i);
+        const unsigned hb = (unsigned)h, ha = (unsigned)(h >> 32);
+        const unsigned eb = 115u + (hb >> 23) % 62u;
+        const unsigned ea = eb - (ha >> 23 & 0xffu) % 41u;
+        const float b = __uint_as_float(eb << 23 | (hb & 0x7fffffu));
+        const float a = __uint_as_float((ha & 0x80000000u) | ea << 23 |
+                                        (ha & 0x7fffffu));
+        n += div_differs(a, b);
+    }
+    if (n) atomicAdd(bad, n);
 }
 
 }  // namespace
@@ -150,13 +124,43 @@ int tv_multiplier_launch(const void* v, int bf16, const float* lam,
 {
     const cudaStream_t s = (cudaStream_t)stream;
     if (bf16)
-        return tv::sweep_launch<__nv_bfloat16, false>(
-            (const __nv_bfloat16*)v, lam, nullptr, out, X, Y, Z, C, s);
-    return tv::sweep_launch<float, false>((const float*)v, lam, nullptr, out,
-                                          X, Y, Z, C, s);
+        return tv::Sweep<__nv_bfloat16, false>::launch(
+            (const __nv_bfloat16*)v, lam, nullptr, out, X, Y, Z, C, false, s);
+    return tv::Sweep<float, false>::launch((const float*)v, lam, nullptr,
+                                           out, X, Y, Z, C, false, s);
 }
 
-// Mismatches of tv_common.cuh's branch-free sqrt and 1/x against
+// tv_multiplier's f32 function with the component chunk as the slowest
+// block index.
+int tv_dimsem_launch(const float* v, const float* lam, float* out, int X,
+                     int Y, int Z, int C, void* stream)
+{
+    return tv::Sweep<float, false>::launch(v, lam, nullptr, out, X, Y, Z, C,
+                                           true, (cudaStream_t)stream);
+}
+
+// Two x-slices per iteration, three divides by the norm; X even.
+int tv_2slice_launch(const float* v, const float* lam, float* out, int X,
+                     int Y, int Z, int C, void* stream)
+{
+    return tv::Sweep<float, false, 2, true>::launch(
+        v, lam, nullptr, out, X, Y, Z, C, false, (cudaStream_t)stream);
+}
+
+// Blocks of one SM that the sweep's instance `which` can hold (the
+// occupancy API, 16-byte staging): 0 tv_multiplier f32 and tv_dimsem,
+// 1 tv_multiplier bf16, 2 tv_2slice.  Negative: minus a cudaError_t.
+int tv_sweep_blocks_per_sm(int which)
+{
+    switch (which) {
+    case 0: return tv::Sweep<float, false>::blocks_per_sm();
+    case 1: return tv::Sweep<__nv_bfloat16, false>::blocks_per_sm();
+    case 2: return tv::Sweep<float, false, 2, true>::blocks_per_sm();
+    }
+    return -(int)cudaErrorInvalidValue;
+}
+
+// Mismatches of tv_common.cuh's branch-free sqrt, 1/x and a/b against
 // __fsqrt_rn and __fdiv_rn over the bit patterns [lo, hi), added to *bad
 // (device memory).
 int tv_rn_selfcheck(unsigned long long lo, unsigned long long hi,
@@ -167,26 +171,13 @@ int tv_rn_selfcheck(unsigned long long lo, unsigned long long hi,
     return (int)cudaGetLastError();
 }
 
-int tv_dimsem_launch(const float* v, const float* lam, float* out, int X,
-                     int Y, int Z, int C, void* stream)
+// Mismatches of the branch-free a/b against __fdiv_rn on `npairs`
+// pseudo-random pairs from `seed`, added to *bad (device memory).
+int tv_div_selfcheck(unsigned long long npairs, unsigned long long seed,
+                     unsigned long long* bad, void* stream)
 {
-    const long ncell = (long)X * Y * Z;
-    if (ncell <= 0 || C <= 0) return (int)cudaSuccess;
-    const dim3 grid(blocks_for(ncell * kChunk),
-                    (unsigned)((C + kChunk - 1) / kChunk));
-    tv_dimsem_kernel<<<grid, tv::kThreads, 0, (cudaStream_t)stream>>>(
-        v, lam, out, X, Y, Z, C);
-    return (int)cudaGetLastError();
-}
-
-int tv_2slice_launch(const float* v, const float* lam, float* out, int X,
-                     int Y, int Z, int C, void* stream)
-{
-    if (X % 2) return (int)cudaErrorInvalidValue;
-    const long total = (long)(X / 2) * Y * Z * C;
-    if (total <= 0) return (int)cudaSuccess;
-    tv_2slice_kernel<<<blocks_for(total), tv::kThreads, 0,
-                       (cudaStream_t)stream>>>(v, lam, out, X, Y, Z, C);
+    div_selfcheck_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(
+        npairs, seed, bad);
     return (int)cudaGetLastError();
 }
 

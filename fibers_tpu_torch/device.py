@@ -16,9 +16,10 @@ relative.  The port never sets the flag; `chip_smoke.py` asserts it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve"]
+__all__ = ["resolve", "upload"]
 
 
 def resolve(device=None) -> torch.device:
@@ -31,3 +32,13 @@ def resolve(device=None) -> torch.device:
             "available; pass device=\"cpu\" (--device cpu on the command "
             "line) to run on the CPU")
     return torch.device("cuda")
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`.  To a CUDA device it goes through pinned
+    memory as an asynchronous copy on the current stream, so the host
+    does not wait for the card (a copy from pageable memory would)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

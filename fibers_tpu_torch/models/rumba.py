@@ -34,11 +34,12 @@ from ..core.handoff import DevicePeaks, split_unit_amp
 from ..core.lazy import LazyVolume
 from ..core.mri import MRI
 from ..core.odf import ODF
-from ..device import resolve
+from ..device import resolve, upload
 from ..io.dispatch import mri_write_struct
 from ..ops.kernels.tv_fused import build_tables, embed_index, tv_fused
 from ..ops.kernels.tv_stencil import tv_multiplier
 from ..ops.masked import mask_indices
+from ..ops.peaks import topk_lower_first
 from ..utils.coords import ang2rot, cart2sph
 
 __all__ = ["RUMBASD", "rumba_rec", "rumba_write", "rumba_peaks",
@@ -301,7 +302,7 @@ def _rumba_peaks_kernel(fodf_full, f_iso, half_verts, nbr, nbr_ok,
     surv = (fodf_full > nbr_max) & (fodf_full >= thr_abs[:, None])
     zero = fodf_full.new_zeros(())
     masked = torch.where(surv, fodf_full, zero)
-    vals, idx = torch.topk(masked, npeak, dim=1)
+    vals, idx = topk_lower_first(masked, npeak)
     pvalid = vals > 0
 
     amp_sum = (vals * pvalid).sum(dim=1)
@@ -362,14 +363,6 @@ def _signal_host(flat, idx, ib0):
     np.clip(dwis, 0.0, 1.0, out=dwis)
     return np.concatenate(
         [(b0_mean > 0).astype(np.float32)[:, None], dwis], axis=1)
-
-
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host array -> device tensor, through one pinned buffer for CUDA."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type != "cuda":
-        return t.to(dev)
-    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def _lap(timings, name, t0, dev):
@@ -542,7 +535,7 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     else:
         dev = resolve(device)
         vol = np.asarray(dwi.vol)
-        signal = _upload(_signal_host(vol.reshape(-1, vol.shape[3]), idx,
+        signal = upload(_signal_host(vol.reshape(-1, vol.shape[3]), idx,
                                       ib0), dev)
         n_rows = nmask
 

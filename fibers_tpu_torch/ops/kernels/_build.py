@@ -136,8 +136,12 @@ def _declare(lib):
     lib.tv_fused_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.tv_fused_launch.restype = ci
     u64 = ctypes.c_ulonglong
-    lib.tv_rn_selfcheck.argtypes = [u64, u64, vp, vp]
-    lib.tv_rn_selfcheck.restype = ci
+    for name in ("tv_rn_selfcheck", "tv_div_selfcheck"):
+        fn = getattr(lib, name)
+        fn.argtypes = [u64, u64, vp, vp]
+        fn.restype = ci
+    lib.tv_sweep_blocks_per_sm.argtypes = [ci]
+    lib.tv_sweep_blocks_per_sm.restype = ci
 
 
 def load_library():

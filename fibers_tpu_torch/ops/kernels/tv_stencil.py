@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["tv_multiplier", "tv_multiplier_plain", "stencil_plain",
-           "rn_selfcheck"]
+           "rn_selfcheck", "sweep_blocks_per_sm"]
 
 
 def _forward_diff(v, dim):
@@ -124,20 +124,42 @@ def tv_multiplier(vol4, lam3):
 tv_multiplier.launches = 0
 
 
-def rn_selfcheck(device="cuda") -> int:
-    """The number of float bit patterns on which the sweep kernels'
-    branch-free square root and reciprocal (csrc/tv_common.cuh:
-    `sqrt_fast`, `rcp_fast`) differ from `__fsqrt_rn` and
-    `__fdiv_rn(1, x)`, over all 2^32 patterns, each where the kernels use
-    it.  0: the kernels round as the IEEE intrinsics everywhere."""
+def rn_selfcheck(device="cuda", pairs: int = 1 << 31) -> int:
+    """The number of cases on which the sweep kernels' branch-free square
+    root, reciprocal and quotient (csrc/tv_common.cuh: `sqrt_fast`,
+    `rcp_fast`, `div_fast`) differ from `__fsqrt_rn` and `__fdiv_rn`,
+    each where the kernels use it: all 2^32 bit patterns as the argument
+    of the first two and as the quotient's denominator under 13
+    numerators, and `pairs` pseudo-random (numerator, denominator) pairs.
+    0: the kernels round as the IEEE intrinsics."""
     from ._build import load_library
     lib = load_library()
     dev = torch.device(device)
     bad = torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tv_rn_selfcheck(0, 1 << 32, bad.data_ptr(), stream)
-    if err != 0:
+        errs = (lib.tv_rn_selfcheck(0, 1 << 32, bad.data_ptr(), stream),
+                lib.tv_div_selfcheck(pairs, 2024, bad.data_ptr(), stream))
+    if any(errs):
         raise RuntimeError(f"rn_selfcheck: launch failed with cudaError "
-                           f"{err}")
+                           f"{errs}")
     return int(bad.item())
+
+
+SWEEP_INSTANCES = ("tv_multiplier f32 / tv_dimsem", "tv_multiplier bf16",
+                   "tv_2slice")
+
+
+def sweep_blocks_per_sm() -> dict:
+    """How many blocks of each dense sweep instance one SM of the current
+    card holds (the CUDA occupancy API): the design counts on 2."""
+    from ._build import load_library
+    lib = load_library()
+    out = {}
+    for which, name in enumerate(SWEEP_INSTANCES):
+        n = lib.tv_sweep_blocks_per_sm(which)
+        if n < 0:
+            raise RuntimeError(f"sweep_blocks_per_sm: cudaError {-n} for "
+                               f"{name}")
+        out[name] = n
+    return out

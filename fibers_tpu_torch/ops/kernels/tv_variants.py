@@ -2,17 +2,20 @@
 experiment (benchmarks/exp_tv_variants.py): hand-written CUDA kernels and
 their plain PyTorch versions.
 
-- `tv_dimsem` (`exp_tv_variants.py:37`): the stencil with the component
-  axis outermost in the launch grid, the ported form of declaring that
-  TPU grid axis parallel.  It computes exactly what `tv_multiplier`
-  computes; its plain version is `tv_multiplier_plain`.
-- `tv_2slice` (`exp_tv_variants.py:95`): two x-slices per thread, with
-  the experiment's arithmetic: each gradient component divided by the
-  norm (three divides, `_tv_kernel2`).  X must be even.
+- `tv_dimsem` (`exp_tv_variants.py:37`): `tv_multiplier`'s x-sweep with
+  the component chunk as the slowest index of the launch grid instead of
+  the fastest, the ported form of that TPU grid (component axis
+  outermost, declared parallel).  It computes exactly what
+  `tv_multiplier` computes; its plain version is `tv_multiplier_plain`.
+- `tv_2slice` (`exp_tv_variants.py:95`): the x-sweep advancing two
+  x-slices per loop iteration and barrier, with the experiment's
+  arithmetic: each gradient component divided by the norm (three
+  divides, `_tv_kernel2`).  X must be even.
 
-Both take f32 stacks only.  Their source is in
-`fibers_tpu_torch/csrc/tv_stencil.cu`.  Nothing in the port's fits calls
-them; `chip_smoke.py` times them against `tv_multiplier`.
+Both take f32 stacks only.  Both are instances of
+`fibers_tpu_torch/csrc/tv_common.cuh:sweep_kernel`, launched from
+`csrc/tv_stencil.cu`.  Nothing in the port's fits calls them;
+`chip_smoke.py` times them against `tv_multiplier` at the same shape.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def _check_even(vol4):
 
 
 def tv_dimsem(vol4, lam3):
-    """`tv_multiplier` launched with the component axis outermost; f32
+    """`tv_multiplier` launched with the component chunk outermost; f32
     [X, Y, Z, C] stack and [X, Y, Z] lam -> [X, Y, Z, C] f32."""
     check_stack("tv_dimsem", vol4, lam3)
     if vol4.device.type == "cpu":
@@ -52,7 +55,7 @@ def tv_dimsem(vol4, lam3):
 
 
 def tv_2slice(vol4, lam3):
-    """The stencil two x-slices per thread with three divides by the
+    """The stencil two x-slices per iteration with three divides by the
     norm; f32 [X, Y, Z, C] stack (X even) and [X, Y, Z] lam ->
     [X, Y, Z, C] f32."""
     check_stack("tv_2slice", vol4, lam3)

@@ -53,22 +53,21 @@ def _take(x, i):
 # ------------------------------------------------------------------ #
 
 def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
-                   dxyz, strdims, nsteps, shape3, step_size, smooth_coeff,
-                   len_max):
+                   dxyz, edget, strdims, nsteps, shape3, step_size,
+                   smooth_coeff, len_max):
     """One direction of LCM-guided propagation for S streams.
 
     Carries the previously chosen vector index (the reference continues
     along it while not entering a new voxel, src/stream.jl:399-411).
     `dxyz` [3, 4] holds the in-plane increments of the four voxel edges,
-    `strdims` the two in-plane dimensions.  Returns (out [nsteps, S, 3]
-    positions, saved [nsteps, S], flags [nsteps, S] int8
-    method-difference flags, npts [S])."""
+    `edget` is `EDGETYPE` on the device, `strdims` the two in-plane
+    dimensions.  Returns (out [nsteps, S, 3] positions, saved
+    [nsteps, S], flags [nsteps, S] int8 method-difference flags,
+    npts [S])."""
     dev = pos0.device
     s = pos0.shape[0]
-    edget = torch.from_numpy(EDGETYPE.astype(np.int64)).to(dev)
     jumps = dxyz.T.to(torch.float32)                     # [4, 3]
     a, b = strdims
-    ninf = torch.tensor(-torch.inf, device=dev)
     tiny = torch.finfo(torch.float32).tiny
 
     outs = torch.empty((nsteps, s, 3), dtype=torch.float32, device=dev)
@@ -115,8 +114,7 @@ def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
         lcm = lcms_flat[flat]                            # [S, 10]
         has_entry = ((edget[0][None, :] == entry[:, None])
                      | (edget[1][None, :] == entry[:, None]))
-        lcm = torch.where(has_entry & matched[:, None], lcm,
-                          torch.zeros((), device=dev))
+        lcm = torch.where(has_entry & matched[:, None], lcm, 0.0)
         havelcm = lcm.sum(dim=1) > 0
         logits = torch.log(torch.clamp_min(lcm, 1e-30))
         u = torch.rand(lcm.shape, generator=gen, device=dev)
@@ -130,8 +128,8 @@ def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
         # the vector best aligned with the jump toward the exit edge
         cos_j = (vecs * jumpvec[:, None, :]).sum(dim=2)
         iszero = (vecs == 0).all(dim=2)
-        cabs = torch.where(iszero, ninf, cos_j.abs())
-        cos_j = torch.where(iszero, ninf, cos_j)
+        cabs = torch.where(iszero, -torch.inf, cos_j.abs())
+        cos_j = torch.where(iszero, -torch.inf, cos_j)
         ivec_new = torch.argmax(cabs, dim=1)
         cbest = _take(cos_j, ivec_new)
         vbest = _take(vecs, ivec_new)
@@ -203,10 +201,11 @@ def stream_lcm(work, seed, lcms):
     lcms_flat = torch.from_numpy(
         lcm_vol.reshape(-1, lcm_vol.shape[3])).to(dev)
     dxyz_t = torch.from_numpy(dxyz).to(dev)
+    edget = torch.from_numpy(EDGETYPE.astype(np.int64)).to(dev)
     nsteps = int(work.len_max) + 2
-    args = (mask_flat, work.ovec_flat, lcms_flat, dxyz_t, strdims, nsteps,
-            work.shape3, float(work.step_size), float(work.smooth_coeff),
-            int(work.len_max))
+    args = (mask_flat, work.ovec_flat, lcms_flat, dxyz_t, edget, strdims,
+            nsteps, work.shape3, float(work.step_size),
+            float(work.smooth_coeff), int(work.len_max))
 
     starts = list(range(0, len(seeds_all), cfg.chunk))
     # per-chunk keys, fixed up front as in the reference
@@ -275,7 +274,6 @@ def _propagate_micro(pos0, vec0, npts0, mask_flat, vec_first, win_off,
     Returns (out [nsteps, S, 3], saved [nsteps, S], npts [S])."""
     dev = pos0.device
     s = pos0.shape[0]
-    ninf = torch.tensor(-torch.inf, device=dev)
     outs = torch.empty((nsteps, s, 3), dtype=torch.float32, device=dev)
     saved = torch.empty((nsteps, s), dtype=torch.bool, device=dev)
     pos, vec, npts = pos0, vec0, npts0
@@ -297,8 +295,8 @@ def _propagate_micro(pos0, vec0, npts0, mask_flat, vec_first, win_off,
 
         wvec = vec_first[wflat]                          # [S, W, 3]
         cosang = (vec[:, None, :] * wvec).sum(dim=2)
-        cosang = torch.where(incone, cosang, ninf)
-        cabs = torch.where(torch.isfinite(cosang), cosang.abs(), ninf)
+        cosang = torch.where(incone, cosang, -torch.inf)
+        cabs = torch.where(torch.isfinite(cosang), cosang.abs(), -torch.inf)
 
         iwin = torch.argmax(cabs, dim=1)
         cbest = _take(cosang, iwin)

@@ -38,7 +38,7 @@ import torch
 
 from ..core.handoff import DevicePeaks
 from ..core.mri import MRI
-from ..device import resolve
+from ..device import resolve, upload
 from ..io.trk import Tract, TrkSink
 from ..utils.prng import prng_key, uniform
 
@@ -133,9 +133,8 @@ def _pick_by_angle(vec_now, vecs):
     (reference: src/stream.jl:340-374)"""
     cos = (vecs * vec_now[:, None, :]).sum(dim=2)
     iszero = (vecs == 0).all(dim=2)
-    ninf = torch.tensor(-torch.inf, dtype=cos.dtype, device=cos.device)
-    cos = torch.where(iszero, ninf, cos)
-    cabs = torch.where(iszero, ninf, cos.abs())
+    cos = torch.where(iszero, -torch.inf, cos)
+    cabs = torch.where(iszero, -torch.inf, cos.abs())
     ivec = torch.argmax(cabs, dim=1)
     c = torch.gather(cos, 1, ivec[:, None])[:, 0]
     v = torch.gather(vecs, 1, ivec[:, None, None].expand(-1, 1, 3))[:, 0, :]
@@ -200,8 +199,7 @@ def _seed_state(seeds, subs, ovecs_flat, shape3):
     """Start positions [S, 3] (seed voxel + sub-voxel offset, host arrays)
     and the first orientation vector at each seed voxel (reference:
     src/stream.jl:645-650), on the device of `ovecs_flat`."""
-    pos0 = torch.from_numpy(np.asarray(seeds + subs, np.float32)).to(
-        ovecs_flat.device)
+    pos0 = upload(np.asarray(seeds + subs, np.float32), ovecs_flat.device)
     flat, _ = _flat_index(torch.round(pos0).to(torch.int64), shape3)
     return pos0, ovecs_flat[flat][:, 0, :]
 
@@ -244,10 +242,9 @@ def _compact(fwd_out, bwd_out, fwd_n, bwd_n, keep, line_off, total):
     bwd_n = bwd_n.to(torch.int64)[None, :]
     off = line_off[None, :]
     keep = keep[None, :]
-    spare = torch.tensor(total, dtype=torch.int64, device=dev)
     dst_f = torch.where((t_idx < fwd_n) & keep, off + fwd_n - 1 - t_idx,
-                        spare)
-    dst_b = torch.where((t_idx < bwd_n) & keep, off + fwd_n + t_idx, spare)
+                        total)
+    dst_b = torch.where((t_idx < bwd_n) & keep, off + fwd_n + t_idx, total)
     tail = tuple(fwd_out.shape[2:])
     out = torch.empty((total + 1,) + tail, dtype=fwd_out.dtype, device=dev)
     out[dst_f.reshape(-1)] = fwd_out.reshape((-1,) + tail)
@@ -307,8 +304,8 @@ def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False):
             off = np.zeros(len(tot), np.int64)
             off[keep] = np.concatenate([[0], np.cumsum(npts)[:-1]])
             dev = fwd_out.device
-            lines = (fwd_n_d, bwd_n_d, torch.from_numpy(keep).to(dev),
-                     torch.from_numpy(off).to(dev), int(npts.sum()))
+            lines = (fwd_n_d, bwd_n_d, upload(keep, dev), upload(off, dev),
+                     int(npts.sum()))
             pts = _to_host(_compact(fwd_out, bwd_out, *lines))
             sc = _to_host(_compact(*scal, *lines)).astype(np.float32) \
                 if has_scalars else None
@@ -390,6 +387,34 @@ def _build_ovec_device(vecs, amp, idx, gate_flat, f_thresh, nxyz):
                       device=v.device)
     out[idx] = v
     return out
+
+
+def _quantiles(a: torch.Tensor, qs) -> List[float]:
+    """The quantiles `qs` of a 1-D float32 tensor of any length, with
+    `jnp.quantile`'s linear interpolation in float32 (position
+    q * (n - 1), the floor and ceil neighbours weighted by its fraction;
+    NaN if any value is NaN): one sort on the tensor's device and one
+    copy of the few values needed to the host.  (`torch.quantile` stops
+    at 2^24 values.)"""
+    n = a.numel()
+    if n == 0:
+        return [float("nan")] * len(qs)
+    f32 = np.float32
+    top = f32(n) - f32(1)                    # n - 1 as jnp takes it, in f32
+    pos = np.asarray(qs, f32) * top
+    low, high = np.floor(pos), np.ceil(pos)
+    w_high = pos - low
+    w_low = f32(1) - w_high
+    at = np.concatenate([np.clip(low, 0, top), np.clip(high, 0, top)])
+    srt = torch.sort(a.reshape(-1)).values
+    # python ints index with no host-to-device copy; f32(n) - 1 can pass
+    # n - 1, where jnp's gather clamps; NaN sorts last
+    picks = torch.stack([srt[min(int(i), n - 1)] for i in at] + [srt[n - 1]])
+    vals = picks.cpu().numpy().astype(f32)
+    if np.isnan(vals[-1]):
+        return [float("nan")] * len(qs)
+    k = len(pos)
+    return [float(x) for x in vals[:k] * w_low + vals[k:2 * k] * w_high]
 
 
 def _warn_range(name, thresh, lo, hi):
@@ -475,10 +500,8 @@ class StreamWork:
 
         if self.device_peaks is not None and cfg.f_thresh > 0:
             pk = self.device_peaks
-            a = pk.amp[:len(pk.idx), 0]
-            q = torch.quantile(a, torch.tensor([1e-5, 0.9], dtype=a.dtype,
-                                               device=a.device))
-            _warn_range("f", cfg.f_thresh, *(float(x) for x in q.cpu()))
+            _warn_range("f", cfg.f_thresh, *_quantiles(
+                pk.amp[:len(pk.idx), 0], (1e-5, 0.9)))
         elif self.fs is not None:
             f0 = self.fs[0].vol if self.fs[0].vol.ndim == 3 else \
                 self.fs[0].vol[..., 0]

@@ -113,6 +113,46 @@ def test_dsi_rec_matches_jax(kind):
     assert t.pdf.vol.shape == mask.vol.shape + (len(dwi.bval),)
 
 
+def test_dsi_rec_tied_peaks_match_jax(monkeypatch):
+    """A fit whose radial weights hold the vertex along the fibre twice
+    (its column copied over a far vertex's): both ODF values are equal,
+    both are strict maxima, and both packages put the lower vertex
+    first."""
+    dwi, mask, _ = make_dsi_phantom(axis=(1, 0.3, 0.1))
+    sphere = ft.sphere_642
+    n = sphere.nvert_half
+    first = np.asarray(sphere.vertices[:n], np.float64)
+    first /= np.linalg.norm(first, axis=1, keepdims=True)
+    plain = np.asarray(ft.dsi_rec(dwi, mask, sphere).odf.vol).reshape(-1, n)
+    src = int(np.argmax(plain[0]))                   # the ODF's top vertex
+    far = np.flatnonzero(np.abs(first @ first[src]) < 0.2)
+    dup = int(far[far < src][-1]) if (far < src).any() else int(far[0])
+
+    def twice(weights):
+        def wrapped(nfft, odf_dirs):
+            w = np.array(weights(nfft, odf_dirs))
+            w[:, dup] = w[:, src]
+            return w
+        return wrapped
+
+    monkeypatch.setattr(jdsi, "_radial_weight_matrix",
+                        twice(jdsi._radial_weight_matrix))
+    monkeypatch.setattr(tdsi, "_radial_weight_matrix",
+                        twice(tdsi._radial_weight_matrix))
+    j = ft.dsi_rec(dwi, mask, sphere)
+    t = tt.dsi_rec(dwi, mask, sphere, device="cpu")
+    lo, hi = sorted((src, dup))
+    for fit in (j, t):
+        odf = np.asarray(fit.odf.vol).reshape(-1, n)
+        assert np.array_equal(odf[:, src], odf[:, dup])
+        assert np.all(odf[:, src] == odf.max(axis=1))       # tied at the top
+        for ip, v in ((0, lo), (1, hi)):
+            pk = np.asarray(fit.peak[ip].vol).reshape(-1, 3)
+            assert np.allclose(np.abs(pk @ first[v]), 1.0, atol=1e-3), ip
+    _assert_dsi_close(j, t)
+    assert np.array_equal(np.asarray(t.qa[0].vol), np.asarray(t.qa[1].vol))
+
+
 def test_dsi_peak_follows_the_true_axis():
     dwi, mask, ax = make_dsi_brain(small=True)
     t = tt.dsi_rec(dwi, mask, device="cpu")

@@ -133,6 +133,73 @@ def test_top_peaks_valid_slots_match_lax():
     assert np.array_equal(idx.numpy()[m], ij[m])
 
 
+def _tied_rows(nbr, nvert, seed):
+    """Rows of a low random floor with a few far-apart vertices raised
+    to shared levels: rows with two and with three tied valid peaks (at
+    the top, and below a single higher peak), rows with fewer than five
+    peaks, a flat row (no peak) and an all-zero row.  The floor is drawn
+    from 4 levels, so that it ties too."""
+    rng = np.random.default_rng(seed)
+    apart = []                        # vertices that share no face
+    for v in rng.permutation(nvert):
+        if all(v not in nbr[u] and u not in nbr[v] for u in apart):
+            apart.append(int(v))
+        if len(apart) == 6:
+            break
+    a, b, c, d, e, f = apart
+    rows = []
+    for levels in ({a: 1.0, b: 1.0}, {b: 1.0, a: 1.0, c: 1.0},
+                   {a: 2.0, d: 1.0, c: 1.0, b: 1.0},
+                   {e: 1.5, f: 1.5, a: 1.0, b: 1.0, c: 1.0, d: 0.5},
+                   {c: 0.75}, {}):
+        o = rng.integers(0, 4, nvert).astype(np.float32) / 64
+        for v, x in levels.items():
+            o[v] = x
+        rows.append(o)
+    rows.append(np.full(nvert, 0.5, np.float32))
+    rows.append(np.zeros(nvert, np.float32))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+@pytest.mark.parametrize("name", ["sphere_362", "sphere_642"])
+def test_top_peaks_ties_match_jax_every_slot(name, k):
+    """Tied valid peaks, and the zero slots of rows with fewer than k
+    peaks, come out in `lax.top_k`'s order (lower vertex first): values,
+    indices and validity equal the JAX package's in every slot."""
+    from fibers_tpu.ops.peaks import top_peaks as jax_top_peaks
+    sphere = getattr(ft, name)
+    nbr, ok = _tables(sphere)
+    o = _tied_rows(nbr, sphere.nvert_half, 17)
+    pm_j = jax_peak_mask(jnp.asarray(o), jnp.asarray(nbr), jnp.asarray(ok))
+    vj, ij, okj = (np.asarray(x) for x in jax_top_peaks(jnp.asarray(o), pm_j,
+                                                        k))
+    pm = peak_mask(torch.from_numpy(o), torch.from_numpy(nbr),
+                   torch.from_numpy(ok))
+    assert np.array_equal(pm.numpy(), np.asarray(pm_j))
+    vals, idx, valid = top_peaks(torch.from_numpy(o), pm, k)
+    assert idx.dtype == torch.int64
+    assert np.array_equal(vals.numpy(), vj)
+    assert np.array_equal(idx.numpy(), ij)
+    assert np.array_equal(valid.numpy(), okj)
+    # the rows do hold ties among valid peaks, and rows short of k peaks
+    assert (vj[:, 0] == vj[:, 1])[vj[:, 1] > 0].any()
+    assert (~okj).any() and okj.any()
+
+
+def test_topk_lower_first_orders_nan_and_ties_as_lax():
+    import jax.lax as lax
+    from fibers_tpu_torch.ops.peaks import topk_lower_first
+    x = np.array([[0.0, 1.0, 0.25, 1.0, 0.0, np.nan, 0.5, 1.0, 0.0],
+                  [3, 3, 3, 1, 1, 3, 0, 0, 0],
+                  [0, 0, 0, 0, 0, 0, 0, 0, 0]], np.float32)
+    for k in (1, 4, 9):
+        vj, ij = lax.top_k(jnp.asarray(x), k)
+        vt, it = topk_lower_first(torch.from_numpy(x), k)
+        assert np.array_equal(vt.numpy(), np.asarray(vj), equal_nan=True)
+        assert np.array_equal(it.numpy(), np.asarray(ij))
+
+
 @pytest.mark.parametrize("name", ["sphere_362", "sphere_642"])
 def test_fused_plain_top3_matches_lax_every_slot(name):
     """The plain top-3 against lax.top_k of the JAX package on every slot,
@@ -332,6 +399,9 @@ def test_probe_edits_find_their_text():
     from fibers_tpu_torch.ops.kernels import _build
     builds = [("gqi_fused.cu", e) for e in probe_paths.GQI_PARTS.values()]
     builds.append(("tv_common.cuh", probe_paths.SKELETON))
+    builds.append(("tv_common.cuh", probe_paths.IEEE_DIV))
+    builds.append(("tv_stencil.cu", probe_paths.ONE_DIV))
+    builds.append(("tv_stencil.cu", probe_paths.ONE_SLICE))
     for source, edits in builds:
         with open(os.path.join(_build._CSRC, source)) as f:
             text = f.read()

@@ -11,7 +11,7 @@ the products and the row reductions in other orders, a few ulp).  Whole
 fits: fODF rtol=1e-4, atol=1e-7 (measured up to 2e-6 relative after 40
 iterations), GFA and the noise variance atol 1e-5, SNR 1e-3, and peak
 vectors within atol=1e-5 where both packages find a peak, with equal
-validity masks (top-k ties differ only in invalid slots, ROADMAP C3).
+validity masks; tied peaks come lower vertex first in both packages.
 A bf16 TV stack: the loose bound of tests/test_rumba.py:329-339, because
 the port rounds the stencil's differences to bf16 (the TPU kernel's rule)
 while the reference's CPU path runs the whole stencil in bf16.
@@ -146,6 +146,96 @@ def test_rumba_peaks_matches_jax():
     assert np.array_equal(nt, nj) and nj.min() > 0
     for i in range(len(fodf)):
         assert np.array_equal(ot[i, :nj[i]], oj[i, :nj[i]])
+
+
+def _tied_fodf(sphere, seed):
+    """fODF rows with two and three tied surviving peaks, a tie below a
+    higher peak, and fewer than NPEAK peaks.  Every value is a multiple
+    of 1/64, so that sums and products of the peak amplitudes are exact
+    in any order."""
+    nbr, nbr_ok = jr._angular_neighbors(sphere)
+    n = sphere.nvert_half
+    rng = np.random.default_rng(seed)
+    apart = []                       # vertices outside each other's cones
+    for v in rng.permutation(n):
+        if all(v not in nbr[u][nbr_ok[u]] and u not in nbr[v][nbr_ok[v]]
+               for u in apart):
+            apart.append(int(v))
+        if len(apart) == 7:
+            break
+    a, b, c, d, e, f, g = apart
+    rows = []
+    for levels in ({b: 1.0, a: 1.0}, {a: 1.0, c: 1.0, b: 1.0},
+                   {d: 2.0, c: 1.0, a: 1.0},
+                   {a: 1.0, b: 1.0, c: 1.0, d: 1.0, e: 1.0, f: 1.0, g: 1.0},
+                   {e: 0.5}):
+        o = rng.integers(0, 3, n).astype(np.float32) / 64
+        for v, x in levels.items():
+            o[v] = x
+        rows.append(o)
+    return np.stack(rows), nbr, nbr_ok
+
+
+@pytest.mark.parametrize("name", ["sphere_362", "sphere_724"])
+def test_rumba_peaks_kernel_ties_match_jax(name):
+    """Tied surviving peaks keep `lax.top_k`'s order (lower vertex
+    first): the peak vectors equal the JAX package's exactly, slot for
+    slot."""
+    sphere = getattr(ft, name)
+    fodf, nbr, nbr_ok = _tied_fodf(sphere, 23)
+    f_iso = np.array([0.25, 0.0, 0.5, 0.125, 0.25], np.float32)
+    half = np.asarray(sphere.vertices[:sphere.nvert_half], np.float32)
+    vj = np.asarray(jr._rumba_peaks_kernel(
+        jnp.asarray(fodf), jnp.asarray(f_iso), jnp.asarray(half),
+        jnp.asarray(nbr), jnp.asarray(nbr_ok), 0.1))
+    vt = tr._rumba_peaks_kernel(
+        torch.from_numpy(fodf), torch.from_numpy(f_iso),
+        torch.from_numpy(half), torch.from_numpy(nbr).long(),
+        torch.from_numpy(nbr_ok), 0.1).numpy()
+    assert vj.shape == vt.shape == (len(fodf), tr.NPEAK, 3)
+    assert np.array_equal(vt, vj)
+    norm = np.linalg.norm(vj, axis=-1)      # the vertex table is unit to 1e-3
+    assert np.isclose(norm[:3, 0], norm[:3, 1], rtol=5e-3).any()   # ties
+    assert (norm[-1, 1:] == 0).all() and norm[-1, 0] > 0      # one peak
+
+
+def test_rumba_rec_tied_peaks_match_jax(monkeypatch):
+    """A whole fit whose dictionary holds one direction twice: the two
+    components stay equal through every iteration, so wherever that
+    direction is a peak, it ties with its copy.  Both packages then put
+    the lower vertex first."""
+    dwi, mask, axes, _ = make_phantom(shape=(6, 5, 4), ndir=30)
+    sphere = ft.sphere_362
+    half = np.asarray(sphere.vertices[:sphere.nvert_half], np.float64)
+    m = np.asarray(mask.vol) > 0
+    src = int(np.argmax(np.abs(half @ axes[m][0])))    # a voxel's own axis
+    far = np.flatnonzero(np.abs(half @ half[src]) < 0.2)
+    dup = int(far[far < src][-1]) if (far < src).any() else int(far[0])
+
+    def twice(build):
+        def wrapped(*args):
+            kernel, ib0 = build(*args)
+            kernel = np.array(kernel)
+            kernel[:, dup] = kernel[:, src]
+            return kernel, ib0
+        return wrapped
+
+    monkeypatch.setattr(jr, "_build_kernel", twice(jr._build_kernel))
+    monkeypatch.setattr(tr, "_build_kernel", twice(tr._build_kernel))
+    j = ft.rumba_rec(dwi, mask, sphere, niter=10)
+    p = tt.rumba_rec(dwi, mask, sphere, niter=10, device="cpu")
+    lo, hi = sorted((src, dup))
+    for fit in (j, p):
+        f = np.asarray(fit.fodf.vol)[m]
+        assert np.array_equal(f[:, src], f[:, dup])
+        tied = np.flatnonzero(f[:, src] == f.max(axis=1))
+        assert len(tied) > 0, "no voxel with tied top peaks"
+        for ip, v in ((0, lo), (1, hi)):      # the lower vertex first
+            pk = np.asarray(fit.peak[ip].vol)[m][tied]
+            cos = pk @ half[v] / (np.linalg.norm(pk, axis=-1)
+                                  * np.linalg.norm(half[v]))
+            assert np.all(cos > 1 - 1e-5), (ip, cos)
+    _assert_fits_close(p, j)
 
 
 # ------------------------------------------------------------------ #

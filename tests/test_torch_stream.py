@@ -244,3 +244,173 @@ def test_peaks_to_ovecs_host_lists():
     with pytest.raises(ValueError, match="device-resident"):
         tt.peaks_to_ovecs(type("R", (), {"peak": []})(), device=True)
     assert isinstance(tt.peaks_to_ovecs(g, device=True).vecs, torch.Tensor)
+
+
+# ------------------------------------------------------------------ #
+# The f-range quantiles
+# ------------------------------------------------------------------ #
+
+def _ulps(a, b):
+    a, b = np.float32(a), np.float32(b)
+    return abs(int(a.view(np.int32)) - int(b.view(np.int32)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 100_000])
+def test_quantiles_match_jnp(n):
+    """The port's quantile against `jnp.quantile` (the reference's
+    `_amp_quantiles`), within 1 ulp: XLA may fuse the interpolation's
+    multiply and add into one rounding."""
+    import jax.numpy as jnp
+    from fibers_tpu_torch.tract.stream import _quantiles
+    a = np.random.default_rng(n).random(n).astype(np.float32)
+    got = _quantiles(torch.from_numpy(a), (1e-5, 0.9))
+    for g, q in zip(got, (1e-5, 0.9)):
+        assert _ulps(g, float(jnp.quantile(jnp.asarray(a), q))) <= 1, (q, g)
+    a[n // 2] = np.nan
+    assert all(np.isnan(g) for g in _quantiles(torch.from_numpy(a), (0.5,)))
+    assert np.isnan(float(jnp.quantile(jnp.asarray(a), 0.5)))
+
+
+def test_quantiles_above_2_24_values():
+    """2^24 + 1 values, where `torch.quantile` raises: a descending ramp
+    over a constant, held against `jnp.quantile`'s rule written out in
+    numpy float32 on the sorted values (the position q * (f32(n) - 1),
+    its floor and ceil neighbours, the fraction as the weight)."""
+    from fibers_tpu_torch.tract.stream import _quantiles
+    n = (1 << 24) + 1
+    a = (np.float32(0.25) + np.arange(n, dtype=np.float32)
+         * np.float32(2.0 ** -26))[::-1].copy()
+    t = torch.from_numpy(a)
+    with pytest.raises(RuntimeError):
+        torch.quantile(t, 0.9)
+    got = _quantiles(t, (1e-5, 0.9))
+    srt = a[::-1]
+    for g, q in zip(got, (1e-5, 0.9)):
+        pos = np.float32(q) * (np.float32(n) - np.float32(1))
+        lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+        w = pos - np.floor(pos)
+        want = srt[lo] * (np.float32(1) - w) + srt[hi] * w
+        assert _ulps(g, want) <= 1, (q, g, want)
+    assert srt[167] <= got[0] <= srt[168]
+
+
+def test_stream_f_range_warning_uses_the_quantiles(capsys):
+    """`stream` over DevicePeaks with f_thresh > 0 prints the reference's
+    warning when the threshold lies outside the amplitudes' range."""
+    dwi, mask = _field("phantom")
+    g = tt.gqi_rec(as_port(dwi), as_port(mask), tt.sphere_362, device="cpu")
+    pk = tt.peaks_to_ovecs(g, device=True)
+    tt.stream(pk, mask=as_port(mask), nsub=1, f_thresh=1e6)
+    assert "f_thresh" in capsys.readouterr().err
+
+
+# ------------------------------------------------------------------ #
+# No host synchronisation inside a step
+# ------------------------------------------------------------------ #
+
+class _NoTorchTensor:
+    """`torch.tensor` raises inside the block: on a CUDA device it is a
+    blocking host-to-device copy, which a step loop must not make."""
+
+    def __enter__(self):
+        self._real = torch.tensor
+
+        def raiser(*a, **k):
+            raise AssertionError("torch.tensor called inside a step loop")
+        torch.tensor = raiser
+
+    def __exit__(self, *exc):
+        torch.tensor = self._real
+
+
+class _SyncIsAnError:
+    """Any host synchronisation with the card raises inside the block."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _guard_launches(monkeypatch, guard):
+    """Run every chunk's propagation (`launch` of `stream._drive`) of the
+    three engines under `guard`; the compaction and the fetch around it
+    run unguarded.  Returns the list of guarded launches made."""
+    from fibers_tpu_torch.tract import modes, stream as stream_mod
+    real, made = stream_mod._drive, []
+
+    def drive(launch, *args, **kwargs):
+        def guarded(lo):
+            with guard:
+                out = launch(lo)
+            made.append(lo)
+            return out
+        return real(guarded, *args, **kwargs)
+
+    monkeypatch.setattr(stream_mod, "_drive", drive)
+    monkeypatch.setattr(modes, "_drive", drive)
+    return made
+
+
+def _run_three_engines(device):
+    """One small deterministic, LCM and microscopy run; their tracts."""
+    from fibers_tpu_torch.utils.phantom import (make_lcm_field,
+                                                make_micro_field)
+    ovm, maskm, _ = _smooth_field()
+    det = tt.stream(as_port(ovm), mask=as_port(maskm), nsub=2, device=device,
+                    chunk=500)
+    ovecs, lcm, lmask = make_lcm_field((24, 24))
+    lcm_t = tt.stream(ovecs, mask=lmask, lcms=lcm, device=device)
+    mov, mmask = make_micro_field((20, 18, 2))
+    mic = tt.stream(mov, mask=mmask, search_dist=5, device=device, nsub=None,
+                    ang_thresh=None, step_size=None, smooth_coeff=None)
+    return det, lcm_t, mic
+
+
+def test_step_loops_build_no_tensor_from_the_host(monkeypatch):
+    """No `torch.tensor` call inside a propagation step of the three
+    engines, in a compaction or in `peak_mask`; the guarded runs give the
+    lines of unguarded ones."""
+    from fibers_tpu_torch.ops.peaks import build_neighbors, peak_mask
+    from fibers_tpu_torch.tract.stream import _compact
+    want = _run_three_engines("cpu")
+    made = _guard_launches(monkeypatch, _NoTorchTensor())
+    got = _run_three_engines("cpu")
+    assert len(made) >= 4                    # two chunks, then one each
+    for a, b in zip(want[::2], got[::2]):    # LCM draws differ run to run
+        assert a.n_count == b.n_count > 0
+        assert np.array_equal(a.packed_xyz, b.packed_xyz)
+    assert got[1].n_count > 0
+
+    rng = np.random.default_rng(0)
+    _, _, faces0 = tt.core.odf.half_sphere(tt.sphere_362)
+    nbr, ok = build_neighbors(faces0, tt.sphere_362.nvert_half)
+    o = torch.from_numpy(rng.random((4, nbr.shape[0])).astype(np.float32))
+    fwd = torch.from_numpy(rng.random((5, 3, 3)).astype(np.float32))
+    cnt = torch.tensor([2, 0, 5], dtype=torch.int32)
+    keep = torch.tensor([True, False, True])
+    off = torch.tensor([0, 0, 4], dtype=torch.int64)
+    with _NoTorchTensor():
+        pm = peak_mask(o, torch.from_numpy(nbr), torch.from_numpy(ok))
+        pts = _compact(fwd, fwd + 1, cnt, cnt, keep, off, 14)
+    assert pm.any() and pts.shape == (14, 3)
+    assert torch.equal(pts[:2], fwd[:2, 0].flip(0))
+    assert torch.equal(pts[2:4], fwd[:2, 0] + 1)
+
+
+@pytest.mark.cuda
+def test_step_loops_do_not_sync_on_card(monkeypatch):
+    """Every chunk's propagation of the deterministic, LCM and microscopy
+    engines runs with `torch.cuda.set_sync_debug_mode("error")`: no
+    blocking copy and no `.item()` between two steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the sync debug mode is CUDA's")
+    made = _guard_launches(monkeypatch, _SyncIsAnError())
+    det, lcm_t, mic = _run_three_engines("cuda")
+    assert len(made) >= 4
+    assert det.n_count > 0 and lcm_t.n_count > 0 and mic.n_count > 0
+    # the guard itself works: a blocking copy raises under it
+    with pytest.raises(RuntimeError):
+        with _SyncIsAnError():
+            torch.ones(3, device="cuda").cpu()

@@ -127,7 +127,8 @@ def test_dimsem_plain_matches_reference():
                                             torch.from_numpy(lam)))
 
 
-@pytest.mark.parametrize("shape", [(6, 5, 4, 3), (4, 2, 9, 5)])
+@pytest.mark.parametrize("shape", [(6, 5, 4, 3), (4, 2, 9, 5), (2, 11, 4, 5),
+                                   (4, 13, 5, 6)])
 def test_2slice_plain_matches_oracle(shape):
     """The two-slice variant divides by the norm three times, like the
     per-volume oracle (tests/oracle.py:rumba_tv_oracle)."""
@@ -309,9 +310,10 @@ def test_fused_kernel_matches_plain_on_card(cuda, case):
 # Shapes that cut the sweep kernels' 8 x 8 (y, z) tiles and 32-wide
 # component chunks raggedly: Y and Z not multiples of 8, C in {7, 33, 364}
 # (a 4-byte and a 16-byte row stride for f32; odd C gives bf16 rows no
-# aligned copy at all), X = 1 and X = 2.
+# aligned copy at all), X = 1 and X = 2.  The last two (X = 2; X = 4 with
+# Z < 8) are all prologue and epilogue of tv_2slice's two-slice ring.
 RAGGED = [(1, 9, 11, 7), (2, 17, 10, 33), (5, 12, 19, 364), (3, 8, 8, 33),
-          (2, 3, 5, 7), (4, 20, 9, 364)]
+          (2, 3, 5, 7), (4, 20, 9, 364), (2, 11, 4, 40), (4, 13, 5, 36)]
 
 
 def ragged_mask(shape3, seed):
@@ -326,11 +328,13 @@ def ragged_mask(shape3, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["f32", "bf16", "fused"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "fused", "dimsem",
+                                  "2slice"])
 @pytest.mark.parametrize("shape", RAGGED, ids=str)
 def test_sweep_kernels_equal_plain_on_ragged_tiles(cuda, shape, kind):
-    """tv_multiplier (f32 and bf16 stacks) and tv_fused are bit-equal to
-    their plain versions where the tiles, chunks and mask are ragged."""
+    """tv_multiplier (f32 and bf16 stacks), tv_fused, tv_dimsem and
+    tv_2slice (even X) are bit-equal to their plain versions where the
+    tiles, chunks and mask are ragged."""
     v, lam = _stack(shape, 21)
     ld = torch.from_numpy(lam).to(cuda)
     if kind == "fused":
@@ -350,16 +354,33 @@ def test_sweep_kernels_equal_plain_on_ragged_tiles(cuda, shape, kind):
     vd = torch.from_numpy(v).to(cuda)
     if kind == "bf16":
         vd = vd.bfloat16()
-    before = tv_multiplier.launches
-    got = tv_multiplier(vd, ld)
+    fn, plain = {"dimsem": (tv_dimsem, tv_dimsem_plain),
+                 "2slice": (tv_2slice, tv_2slice_plain)}.get(
+                     kind, (tv_multiplier, tv_multiplier_plain))
+    if kind == "2slice" and shape[0] % 2:
+        with pytest.raises(ValueError, match="even"):
+            fn(vd, ld)
+        return
+    before = fn.launches
+    got = fn(vd, ld)
     torch.cuda.synchronize()
-    assert tv_multiplier.launches == before + 1
-    assert torch.equal(got, tv_multiplier_plain(vd, ld))
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(vd, ld))
 
 
 @pytest.mark.cuda
 def test_branch_free_rounding_equals_the_intrinsics(cuda):
-    """The sweep kernels' sqrt and 1/x equal __fsqrt_rn and __fdiv_rn on
-    every float where the kernels use them (all 2^32 bit patterns)."""
+    """The sweep kernels' sqrt, 1/x and a/b equal __fsqrt_rn and
+    __fdiv_rn where the kernels use them: all 2^32 bit patterns as the
+    argument and as the quotient's denominator under 13 numerators, and
+    2^31 random pairs."""
     from fibers_tpu_torch.ops.kernels.tv_stencil import rn_selfcheck
     assert rn_selfcheck(cuda) == 0
+
+
+@pytest.mark.cuda
+def test_sweep_instances_fit_two_blocks_per_sm(cuda):
+    """The design counts on two blocks of every sweep instance per SM,
+    tv_2slice's 112 KB of shared memory included."""
+    from fibers_tpu_torch.ops.kernels.tv_stencil import sweep_blocks_per_sm
+    assert all(n == 2 for n in sweep_blocks_per_sm().values())
