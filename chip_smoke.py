@@ -27,13 +27,21 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   and the CLI (`python -m fibers_tpu_torch dsi`/`structens`), with their
   card-against-CPU checks on small inputs.  These paths run none of the
   hand-written kernels; their launch counts must stay 0.
+- Mesh (`[mesh]` lines): on two cards when the host has them, else on
+  two shards of card 0, the headline pipeline (its stream's chunks under
+  the sync debug mode), RUMBA config 4 (20 iterations), DSI config 3,
+  the structure tensor and one `full_recon_step`, each sharded against
+  the unsharded run of the same call, with each kernel's launches on
+  those paths (`gqi_fused` once per shard, `tv_multiplier` once per
+  device and iteration, `tv_fused` never).
 
 Every phase raises on failure.  It imports no jax and nothing of the JAX
 package `fibers_tpu`; without a CUDA device it fails.
 
 Output: one line per phase with its wall time; then a JSON line with the
-kernel records (launches on the path, error against the plain version,
-kernel, plain and bound times), the `nvidia-smi` name and power limit,
+kernel records (launches on the path and on the mesh paths, error
+against the plain version, kernel, plain and bound times), the
+`nvidia-smi` name and power limit,
 and as the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -292,19 +300,41 @@ def _seed_mask(mask, target_seeds):
     return seed
 
 
-def pipeline(dwi, mask, seed, device, trk):
-    """The bench.py:233-275 sequence on the port; returns results and
-    per-stage wall times (each stage ends in a synchronize)."""
+def smoke_mesh():
+    """The `[mesh]` phase's mesh: `make_mesh(2)` over two cards when the
+    host has them, else two shards on card 0 (a device may repeat)."""
+    import numpy as np
+    import torch
+    from fibers_tpu_torch.parallel.mesh import Mesh, make_mesh
+    if torch.cuda.device_count() >= 2:
+        return make_mesh(2), "make_mesh(2): cuda:0 and cuda:1"
+    cuda0 = torch.device("cuda", 0)
+    return (Mesh(np.array([cuda0, cuda0], dtype=object), ("data",)),
+            "Mesh([cuda:0, cuda:0], ('data',)): two shards on one card")
+
+
+def sync_all(mesh=None):
+    """Wait for every card (those of `mesh`, else the current one)."""
+    import torch
+    for d in (mesh.distinct_devices() if mesh is not None else [None]):
+        torch.cuda.synchronize(d)
+
+
+def pipeline(dwi, mask, seed, device, trk, mesh=None):
+    """The bench.py:233-275 sequence on the port, sharded over `mesh`
+    when given; returns results and per-stage wall times (each stage ends
+    in a synchronize)."""
     import torch
     import fibers_tpu_torch as tt
 
     def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
+        if mesh is not None or torch.device(device).type == "cuda":
+            sync_all(mesh)
 
     t = {}
     t0 = time.time()
-    batch = tt.prepare_batch(dwi, mask, wire="f32", device=device)
+    batch = tt.prepare_batch(dwi, mask, wire="f32", device=device,
+                             mesh=mesh)
     sync()
     t["batch"] = time.time() - t0
     t1 = time.time()
@@ -318,7 +348,7 @@ def pipeline(dwi, mask, seed, device, trk):
     t1 = time.time()
     pk1 = tt.peaks_to_ovecs(gqi, device=True).first(1)
     tract = tt.stream(pk1, fa=dti.fa, mask=mask, seed=seed, nsub=3,
-                      f_thresh=0.0, wire="f32", trk_sink=trk)
+                      f_thresh=0.0, wire="f32", trk_sink=trk, mesh=mesh)
     t["stream+write"] = time.time() - t1
     t["total"] = time.time() - t0
     return dti, gqi, tract, t
@@ -448,7 +478,77 @@ def phase_nosync():
           "an engine gave no streamlines under the sync check")
 
 
-def phase_main():
+def phase_mesh_main(dwi, mask, seed, mesh, ref, back_ref, t_ref, d):
+    """[mesh] The headline pipeline sharded over `mesh` (the stream's step
+    loop under `launches_must_not_sync`), against the unsharded run 2 of
+    the same call (`ref` = its dti, gqi and tract, `back_ref` its .trk
+    read back).  Tolerances: FA within 1e-4 (C6's), the GQI ODF and QA
+    bit-equal or within rtol 1e-4 / atol 2e-5 (tests/test_parallel.py's),
+    peaks the same; the stream's npts equal and its points within 1e-6.
+    Returns gqi_fused's launches on this path."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+
+    dti_r, gqi_r, tract_r = ref
+    trk = os.path.join(d, "mesh.trk")
+    reset_counts()
+    with launches_must_not_sync() as guard:
+        dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk,
+                                      mesh=mesh)
+    counts = read_counts()
+    log(f"[mesh] pipeline sharded over {mesh.ndata} shards: " + ", ".join(
+        f"{k}={v:.3f} s" for k, v in t.items()) + "; unsharded run 2: "
+        + ", ".join(f"{k}={v:.3f} s" for k, v in t_ref.items())
+        + f"; launches {counts}; {guard.made} stream chunk launches under "
+        "set_sync_debug_mode('error')")
+    check(counts["gqi_fused"] == mesh.ndata
+          and sum(counts.values()) == mesh.ndata,
+          f"the sharded pipeline launched {counts}, not gqi_fused once per "
+          f"shard")
+    check(guard.made >= 1, "the sharded stream ran no guarded launch")
+
+    m = mask.vol > 0
+    fa, fa_r = dti.fa.vol, dti_r.fa.vol
+    check(np.array_equal(np.isfinite(fa), np.isfinite(fa_r)),
+          "FA finite on one run and not on the other")
+    fin = m & np.isfinite(fa)
+    dfa = float(np.abs(fa - fa_r)[fin].max())
+    n = int(m.sum())
+    odf = device_values(gqi.odf).gather()[:n]
+    odf_r = device_values(gqi_r.odf)[:n]
+    odf_eq = torch.equal(odf, odf_r)
+    dodf = float((odf - odf_r).abs().max())
+    torch.testing.assert_close(odf, odf_r, rtol=1e-4, atol=2e-5)
+    del odf, odf_r
+    qa_eq = all(np.array_equal(a.vol, b.vol)
+                for a, b in zip(gqi.qa, gqi_r.qa))
+    dqa = max(float(np.abs(a.vol - b.vol).max())
+              for a, b in zip(gqi.qa, gqi_r.qa))
+    pk_eq = all(np.array_equal(a.vol, b.vol)
+                for a, b in zip(gqi.peak, gqi_r.peak))
+    for a, b in zip(gqi.qa + gqi.peak, gqi_r.qa + gqi_r.peak):
+        np.testing.assert_allclose(a.vol, b.vol, rtol=1e-4, atol=2e-5)
+    back = tt.trk_read(trk)
+    same_n = np.array_equal(np.asarray(back.npts), np.asarray(back_ref.npts))
+    dpts = float(np.abs(back.packed_xyz - back_ref.packed_xyz).max()) \
+        if same_n and back.packed_xyz.shape == back_ref.packed_xyz.shape \
+        else float("inf")
+    log(f"[mesh] pipeline against unsharded: max|dFA|={dfa:.3g}; ODF "
+        f"{'bit-equal' if odf_eq else f'max|d|={dodf:.3g}'}; QA "
+        f"{'bit-equal' if qa_eq else f'max|d|={dqa:.3g}'}; peaks "
+        f"{'bit-equal' if pk_eq else 'within rtol 1e-4 / atol 2e-5'}; "
+        f"streams {tract.n_count} / {tract_r.n_count}, npts "
+        f"{'equal' if same_n else 'differ'}, max|dpts| in the .trk "
+        f"{dpts:.3g}")
+    check(dfa <= 1e-4, f"sharded FA differs by {dfa}")
+    check(tract.n_count == tract_r.n_count and same_n,
+          "the sharded stream's line lengths differ from the unsharded")
+    check(dpts <= 1e-6, f"the sharded stream's points differ by {dpts}")
+    return counts["gqi_fused"]
+
+
+def phase_main(mesh):
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -472,6 +572,8 @@ def phase_main():
         dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk)
         counts = read_counts()
         back = tt.trk_read(trk)
+        mesh_launches = phase_mesh_main(dwi, mask, seed, mesh,
+                                        (dti, gqi, tract), back, t, d)
     launches = counts["gqi_fused"]
     npts = int(np.sum(tract.npts))
     for name, tt_ in (("run 1", t_warm), ("run 2", t)):
@@ -501,7 +603,7 @@ def phase_main():
     log(f"[main] peak 1 vs true axis outside the crossing slab: median "
         f"|cos|={np.median(cos):.4f} over {int(single.sum())} voxels")
     check(np.median(cos) > 0.9, "GQI peak 1 does not follow the true axis")
-    return launches, t, tract.n_count, npts
+    return launches, mesh_launches
 
 
 def phase_small():
@@ -616,7 +718,7 @@ def phase_tv(mask):
     its bound."""
     import numpy as np
     import torch
-    from fibers_tpu_torch.models.rumba import _tv_bbox
+    from fibers_tpu_torch.models.rumba import _tv_bbox, mesh_tv_width
     from fibers_tpu_torch.ops.kernels.tv_fused import (build_tables,
                                                        tv_fused,
                                                        tv_fused_plain)
@@ -685,6 +787,23 @@ def phase_tv(mask):
     # the three f32 sweeps side by side; tv_multiplier's own record is its
     # bf16 path's, so its f32 time rides along
     records["tv_multiplier"]["f32_ms"] = f32["tv_multiplier"]
+    # the mesh path's f32 stack: one device's share of the components on
+    # the 2-device mesh, padded to 16-byte rows (mesh_tv_width), beside
+    # the unpadded half, whose 728-byte rows take the narrow copies
+    for w in (mesh_tv_width(C, 2), C // 2):
+        half = dense[..., :w].contiguous()
+        nb_half = 2 * half.nbytes + lam.nbytes
+        rec = hold(f"tv_multiplier f32 {tuple(half.shape)} (one device's "
+                   f"stack on the 2-device mesh{', unpadded' if w % 4 else ''}"
+                   ")", lambda: tv_multiplier(half, lam),
+                   lambda: tv_multiplier_plain(half, lam), 3, nb_half)
+        if w % 4:
+            records["tv_multiplier"]["mesh_f32"]["unpadded_ms"] = rec["ms"]
+        else:
+            records["tv_multiplier"]["mesh_f32"] = dict(
+                rec, shape=list(half.shape),
+                **bound_ms(nb_half, TV_FLOPS * half.numel()))
+        del half
     bound = records["tv_dimsem"]["bound_ms"]
     log(f"[tv] f32 {tuple(dense.shape)} side by side: " + ", ".join(
         f"{k} {v:.3f} ms ({100 * bound / v:.1f}% of the {bound:.3f} ms "
@@ -726,11 +845,12 @@ def phase_tv(mask):
     return records
 
 
-def phase_rumba(dwi, mask, ax):
+def phase_rumba(dwi, mask, ax, mesh):
     """Config 4 at full width on the card: RUMBA-SD, 600 iterations,
-    chained into ~1M streams written to a .trk; then a tv_bf16 run.  The
-    warm run and the two 50-iteration runs take a prepared batch, which
-    skips the host signal route the counted run times."""
+    chained into ~1M streams written to a .trk; then a tv_bf16 run and
+    the mesh run (`phase_mesh_rumba`).  The warm run and the 50- and
+    20-iteration runs take a prepared batch, which skips the host signal
+    route the counted run times."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -826,7 +946,56 @@ def phase_rumba(dwi, mask, ax):
     check(counts_b16["tv_multiplier"] == nb and counts_b16["tv_fused"] == 0,
           f"the tv_bf16 run launched {counts_b16}")
     torch.testing.assert_close(fb, ff, rtol=0.05, atol=2e-3)
-    return counts, counts_b16, stages, t_stream
+    del b16, f32, fb, ff
+    counts_mesh = phase_mesh_rumba(dwi, mask, mesh, batch, nmask)
+    return counts, counts_b16, counts_mesh
+
+
+def phase_mesh_rumba(dwi, mask, mesh, batch, nmask, niter=20):
+    """[mesh] Config 4 at full width, `niter` iterations on the mesh (the
+    TV term resharded over components, `tv_multiplier` f32 on each
+    device's [X, Y, Z, C / devices] stack) against `niter` unsharded
+    iterations on `batch` (`tv_fused`): fODF and GFA within rtol 1e-4 /
+    atol 1e-6 (tests/test_parallel.py's), snr_mean within 1e-2.  Returns
+    the launches of the mesh run, which must be tv_multiplier = niter x
+    devices and nothing else."""
+    import torch
+    import fibers_tpu_torch as tt
+
+    st_ref, st_mesh = {}, {}
+    ref = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter, batch=batch,
+                       timings=st_ref)
+    mbatch = tt.prepare_batch(dwi, mask, wire="f32", mesh=mesh)
+    tt.rumba_rec(dwi, mask, tt.sphere_724, niter=2, batch=mbatch)  # warm
+    sync_all(mesh)
+    reset_counts()
+    t0 = time.time()
+    rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter, batch=mbatch,
+                       timings=st_mesh)
+    t_fit = time.time() - t0
+    counts = read_counts()
+    f_m = device_values(rum.fodf).gather()[:nmask]
+    f_r = device_values(ref.fodf)[:nmask]
+    dmax = float((f_m - f_r).abs().max())
+    g_m = device_values(rum.gfa).gather()[:nmask]
+    g_r = device_values(ref.gfa)[:nmask]
+    dsnr = abs(rum.snr_mean - ref.snr_mean)
+    log(f"[mesh] RUMBA config 4, {niter} iterations over {mesh.size} "
+        f"devices: " + ", ".join(f"{k}={v:.3f} s" for k, v in
+                                 st_mesh.items())
+        + f", total {t_fit:.3f} s, {1e3 * st_mesh['iterate'] / niter:.3f} "
+        f"ms per iteration; unsharded {1e3 * st_ref['iterate'] / niter:.3f}"
+        f" ms per iteration; launches {counts}; max|dfODF|={dmax:.3g} "
+        f"max|dGFA|={float((g_m - g_r).abs().max()):.3g} "
+        f"|dsnr_mean|={dsnr:.3g}")
+    check(counts["tv_multiplier"] == niter * mesh.size
+          and sum(counts.values()) == counts["tv_multiplier"],
+          f"the mesh RUMBA launched {counts}, not tv_multiplier "
+          f"{niter} x {mesh.size}")
+    torch.testing.assert_close(f_m, f_r, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(g_m, g_r, rtol=1e-4, atol=1e-6)
+    check(dsnr <= 1e-2, f"snr_mean differs by {dsnr}")
+    return counts
 
 
 def phase_rumba_small():
@@ -870,17 +1039,141 @@ def phase_rumba_small():
           f"stream counts card {n_g} vs cpu {n_c}")
 
 
+def phase_mesh_step(mesh, n=131_072):
+    """[mesh] One `full_recon_step` (DTI, GQI through `gqi_fused`, one
+    RUMBA-SD update with its TV term, 8 streamline steps) on the mesh and
+    on one device, from the same inputs: __graft_entry__.py's problem at
+    n rows, with the main path's 198-volume table and sphere_642.  The
+    row outputs within tests/test_parallel.py's tolerances (FA, ODF, QA,
+    peaks rtol 1e-4 / atol 2e-5; fODF, sigma^2, lambda rtol 1e-4 / atol
+    1e-6), npts equal, points within 1e-6.  Returns the mesh run's
+    launches: gqi_fused once per shard, tv_multiplier once per device."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.parallel.mesh import ShardedRows
+    from fibers_tpu_torch.parallel.pipeline import (build_constants,
+                                                    full_recon_step)
+    from fibers_tpu_torch.utils.phantom import make_brain
+
+    probe, _, _ = make_brain(shape=(2, 2, 2))          # the 198-volume table
+    bval = np.asarray(probe.bval, np.float32)
+    c = build_constants(bval, np.asarray(probe.bvec, np.float32),
+                        tt.sphere_642)
+    rng = np.random.default_rng(0)
+    signals = np.abs(rng.standard_normal((n, len(bval)))).astype(np.float32)
+    ncomp = c["kernel"].shape[1]
+    fodf = np.full((n, ncomp), 1.0 / ncomp, np.float32)
+    sig2 = np.full((n, 1), (1.0 / 15) ** 2, np.float32)
+    rsig = np.clip(np.abs(rng.standard_normal(
+        (n, c["kernel"].shape[0]))), 0, 1).astype(np.float32)
+    tv_shape3 = (64, 64, -(-n // 4096))
+    lam = np.full(int(np.prod(tv_shape3)), (1.0 / 15) ** 2, np.float32)
+    tv_idx = np.arange(n, dtype=np.int64)
+    shape3 = (32, 32, 32)
+    ovecs = rng.standard_normal((int(np.prod(shape3)), 1, 3)).astype(
+        np.float32)
+    ovecs /= np.linalg.norm(ovecs, axis=2, keepdims=True)
+    seeds = rng.uniform(1, shape3[0] - 2, (n, 3)).astype(np.float32)
+    seed_vecs = ovecs[np.ravel_multi_index(
+        np.round(seeds).astype(int).T, shape3), 0]
+    args = (signals, rsig, fodf, sig2, lam, tv_idx, seeds, seed_vecs,
+            np.ones(len(ovecs), bool), ovecs, c["A_dti"], c["ib0"],
+            c["A_gqi"], c["kernel"], c["verts_first"], c["nbr"],
+            c["nbr_ok"], shape3, tv_shape3)
+    runs = {}
+    for name, kw in (("one device", dict(device="cuda")),
+                     ("mesh", dict(mesh=mesh))):
+        full_recon_step(*args, **kw)                          # warm run
+        sync_all(mesh)
+        reset_counts()
+        t0 = time.time()
+        out = full_recon_step(*args, **kw)
+        sync_all(mesh)
+        runs[name] = (out, time.time() - t0, read_counts())
+    (one, t_one, c_one), (sh, t_sh, c_sh) = runs["one device"], runs["mesh"]
+    names = ("fa", "odf", "peaks", "qa", "fodf", "sig2", "lam", "pts",
+             "npts")
+    errs = []
+    for name, a, b in zip(names, one, sh):
+        if isinstance(b, ShardedRows):
+            b = b.gather(a.device)
+        a, b = a.to(b.device), b
+        errs.append(f"{name} " + ("bit-equal" if torch.equal(a, b) else
+                                  f"max|d|={float((a - b).abs().max()):.3g}"))
+        if name == "npts":
+            check(torch.equal(a, b), "full_recon_step's npts differ")
+        elif name == "pts":
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        elif name in ("fodf", "sig2", "lam"):
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-6)
+        else:
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=2e-5,
+                                       equal_nan=True)
+    log(f"[mesh] full_recon_step, {n} rows, {len(bval)} volumes, "
+        f"sphere_642, TV grid {tv_shape3}: one device {1e3 * t_one:.1f} ms "
+        f"(launches {c_one}), mesh {1e3 * t_sh:.1f} ms (launches {c_sh}); "
+        + ", ".join(errs))
+    check(c_one["gqi_fused"] == 1 and c_one["tv_fused"] == 1
+          and sum(c_one.values()) == 2, f"one-device step launched {c_one}")
+    check(c_sh["gqi_fused"] == mesh.ndata
+          and c_sh["tv_multiplier"] == mesh.size
+          and sum(c_sh.values()) == mesh.ndata + mesh.size,
+          f"the mesh step launched {c_sh}")
+    return c_sh
+
+
 def _check_no_kernel(counts, what):
     """The DSI, structure-tensor and LCM/micro paths run none of the five
     kernels: their launch counts stay 0."""
     check(not any(counts.values()), f"{what} launched kernels: {counts}")
 
 
-def phase_dsi():
+def phase_mesh_dsi(dwi, mask, mesh, ref, st_ref):
+    """[mesh] DSI config 3 with `mesh=` (each chunk's rows sharded, the QA
+    normaliser a max over the shards) against the unsharded counted run
+    `ref` of the same call: ODF and PDF within rtol 1e-4 / atol 1e-6 and
+    QA1 within rtol 1e-3 / atol 1e-5 (tests/test_parallel.py's), peak 1
+    equal on >= 99.5% of the valid voxels (the card-against-CPU rule)."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+
+    nmask = int((mask.vol > 0).sum())
+    tt.dsi_rec(dwi, mask, tt.sphere_642, mesh=mesh)          # warm run
+    sync_all(mesh)
+    reset_counts()
+    stages = {}
+    dsi = tt.dsi_rec(dwi, mask, tt.sphere_642, mesh=mesh, timings=stages)
+    counts = read_counts()
+    errs = {}
+    for name in ("pdf", "odf"):
+        a = device_values(getattr(dsi, name)).gather()[:nmask]
+        b = device_values(getattr(ref, name))[:nmask]
+        errs[name] = ("bit-equal" if torch.equal(a, b) else
+                      f"max|d|={float((a - b).abs().max()):.3g}")
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        del a, b
+    qa, qa_r = dsi.qa[0].vol, ref.qa[0].vol
+    np.testing.assert_allclose(qa, qa_r, rtol=1e-3, atol=1e-5)
+    valid = (qa > 0) & (qa_r > 0)
+    same = float(np.all(dsi.peak[0].vol == ref.peak[0].vol,
+                        axis=-1)[valid].mean())
+    log(f"[mesh] DSI config 3 over {mesh.ndata} shards: " + ", ".join(
+        f"{k}={v:.3f} s" for k, v in stages.items()) + "; unsharded "
+        + ", ".join(f"{k}={v:.3f} s" for k, v in st_ref.items())
+        + f"; launches {counts}; PDF {errs['pdf']}, ODF {errs['odf']}, "
+        f"max|dQA1|={float(np.abs(qa - qa_r).max()):.3g}, peak 1 equal on "
+        f"{100 * same:.3f}% of {int(valid.sum())} voxels")
+    _check_no_kernel(counts, "the mesh DSI path")
+    check(same >= 0.995, f"mesh DSI peak 1 equal on only {same:.4f}")
+
+
+def phase_dsi(mesh):
     """Config 3 at full width on the card (96^3, 515 q-samples,
     sphere_642): a warm run, then a counted run with its stage times and
-    peak device memory; checks; the DSI peaks chained into ~1M streams
-    written to a .trk and read back."""
+    peak device memory; checks; the mesh run (`phase_mesh_dsi`); the DSI
+    peaks chained into ~1M streams written to a .trk and read back."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -921,6 +1214,7 @@ def phase_dsi():
         f"axis median |cos|={np.median(cos):.4f} over {nmask} voxels")
     check(np.isfinite(qa).all() and (qa > 0).all(), "QA1 not positive")
     check(np.median(cos) > 0.9, "DSI peak 1 does not follow the true axis")
+    phase_mesh_dsi(dwi, mask, mesh, dsi, stages)
 
     seed = _seed_mask(mask, 1_000_000)
     with tempfile.TemporaryDirectory() as d:
@@ -940,7 +1234,7 @@ def phase_dsi():
           f".trk holds {back.n_count} lines, the Tract {tract.n_count}")
 
 
-def phase_structens(vol):
+def phase_structens(vol, mesh):
     """st_recon on the mean DWI of config 4 (140x140x92), sigma 1, rho 2,
     lazy, as bench_models.py pairs it with RUMBA: a warm run, then a
     timed one."""
@@ -965,6 +1259,25 @@ def phase_structens(vol):
           "structure-tensor output shapes")
     check(bool(torch.isfinite(ev).all()), "eigenvalues not finite")
     check(bool((ev.diff(dim=-1) >= 0).all()), "eigenvalues not ascending")
+
+    # [mesh] slabs along the first axis with their halos, one per shard,
+    # against the unsharded run: eigenvalues within 1e-5 of the largest
+    # (tests/test_torch_structens.py's)
+    tt.st_recon(vol, sigma=1.0, rho=2.0, lazy=True, mesh=mesh)   # warm run
+    sync_all(mesh)
+    reset_counts()
+    t0 = time.time()
+    evm, elm = tt.st_recon(vol, sigma=1.0, rho=2.0, lazy=True, mesh=mesh)
+    sync_all(mesh)
+    t_mesh = time.time() - t0
+    counts = read_counts()
+    dl = float((elm.device - ev).abs().max() / ev.abs().max())
+    dv = float((evm.device.abs() - evecs.device.abs()).abs().max())
+    log(f"[mesh] st_recon over {mesh.ndata} slabs: {1e3 * t_mesh:.2f} ms "
+        f"(unsharded {1e3 * t_st:.2f} ms); max|dλ|/max|λ|={dl:.3g}, "
+        f"max||dv||={dv:.3g}")
+    _check_no_kernel(counts, "the mesh structure tensor")
+    check(dl <= 1e-5, f"mesh eigenvalues differ by {dl} (relative)")
     return t_st
 
 
@@ -1144,8 +1457,13 @@ def main():
     t0 = time.time()
     smi = phase_device()
     phase_build()
+    mesh, kind = smoke_mesh()
+    log(f"[mesh] the mesh phases run on {kind}")
     records = {"gqi_fused": phase_kernel()}
-    launches = {"gqi_fused": phase_main()[0]}
+    main_launches, mesh_main = phase_main(mesh)
+    launches = {"gqi_fused": main_launches}
+    # launches of each kernel on the mesh paths, by path
+    mesh_launches = {"pipeline": {"gqi_fused": mesh_main}}
     phase_small()
 
     t1 = time.time()
@@ -1153,7 +1471,8 @@ def main():
     log(f"[rumba] set-up: phantom {dwi.vol.shape} built in "
         f"{time.time() - t1:.1f} s")
     records.update(phase_tv(mask))
-    counts, counts_b16, _, _ = phase_rumba(dwi, mask, ax)
+    counts, counts_b16, counts_mesh = phase_rumba(dwi, mask, ax, mesh)
+    mesh_launches["rumba"] = counts_mesh
     mean_dwi = dwi.vol.mean(axis=3)
     del dwi, mask, ax
     launches["tv_fused"] = counts["tv_fused"]
@@ -1163,13 +1482,16 @@ def main():
     # the paths with no hand-written kernel: DSI, the structure tensor,
     # the LCM and micro modes, the CLI
     t1 = time.time()
-    phase_structens(mean_dwi)
+    phase_structens(mean_dwi, mesh)
     del mean_dwi
-    phase_dsi()
+    phase_dsi(mesh)
     phase_modes()
     dsi_small = phase_new_small()
     phase_cli(dsi_small)
     log(f"[new phases] {time.time() - t1:.1f} s")
+    t1 = time.time()
+    mesh_launches["full_recon_step"] = phase_mesh_step(mesh)
+    log(f"[mesh] full_recon_step phase {time.time() - t1:.1f} s")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "fibers_tpu" or m.startswith("fibers_tpu.")
                   for m in sys.modules), "the JAX package was imported")
@@ -1178,9 +1500,11 @@ def main():
     # carries the product alone as its partial yardstick
     kernels = []
     for name, src, site, on_path in KERNELS:
+        by_path = {p: c.get(name, 0) for p, c in mesh_launches.items()}
         rec = dict(name=name, route="cuda", source=src, replaces=site,
                    launches=launches.get(name, 0), on_path=on_path,
-                   library_ms=None)
+                   mesh_launches=sum(by_path.values()),
+                   mesh_launches_by_path=by_path, library_ms=None)
         rec.update(records[name])
         kernels.append(rec)
     log(json.dumps({"kernels": kernels}))

@@ -13,9 +13,11 @@ Every public name of `fibers_tpu` resolves here: the headline pipeline
 the device peak handoff and `stream`), RUMBA-SD (`rumba_rec`, with its
 two hand-written TV kernels), DSI, the structure tensor, the LCM and
 microscopy tractography modes, the single-line and single-step stream
-API, and `python -m fibers_tpu_torch`.  Not ported yet: `mesh=` (ROADMAP
-A13) and the quantized wires (A14), which raise `NotImplementedError`
-naming their item.
+API, and `python -m fibers_tpu_torch`.  Every `mesh=` shards the work
+over a device mesh (`parallel/`: `make_mesh`, several shards on one card
+or on the CPU, and `torch.distributed` across processes).  Not ported
+yet: the quantized wires (ROADMAP A14), which raise
+`NotImplementedError` naming it.
 """
 
 from .core.geometry import (vox2ras_0to1, vox2ras_tkreg, vox2ras_to_orient,

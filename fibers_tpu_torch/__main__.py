@@ -5,9 +5,10 @@ The counterpart of `python -m fibers_tpu` (fibers_tpu/__main__.py).
 positionals, options and defaults are the same, plus one top-level
 `--device {cuda,cpu}` (default cuda), this package's counterpart of
 `JAX_PLATFORMS`: every fit runs on the card unless `--device cpu` asks
-for the CPU.  `--mesh N` with N > 0 raises (multi-device runs are ROADMAP
-A13); the reference's default wires (`dsi --wire auto8`,
-`rumba --wire u12`) are accepted and upload exact float32.
+for the CPU.  `--mesh N` with N > 0 shards the fits and the seeds over
+`make_mesh(N)`: N distinct cards, or N shards on the CPU with `--device
+cpu`.  The reference's default wires (`dsi --wire auto8`, `rumba --wire
+u12`) are accepted and upload exact float32.
 
     python -m fibers_tpu_torch info dwi.nii.gz
     python -m fibers_tpu_torch dti dwi.nii.gz mask.nii.gz out/dti
@@ -38,12 +39,13 @@ def _sphere(name: str):
         raise SystemExit(f"unknown sphere {name!r} (choose 362/642/724)")
 
 
-def _mesh(n):
-    if n:
-        raise NotImplementedError(
-            f"--mesh {n}: multi-device runs are not ported yet (ROADMAP "
-            "A13)")
-    return None
+def _mesh(args):
+    """`--mesh N`: None for 0, else N devices of `--device`."""
+    if not args.mesh:
+        return None
+    from .parallel.mesh import make_mesh
+
+    return make_mesh(int(args.mesh), device=args.device)
 
 
 def _read_pair(dwi_path: str, mask_path: str):
@@ -85,7 +87,7 @@ def cmd_adc(args) -> int:
     import fibers_tpu_torch as tt
 
     dwi, mask = _read_pair(args.dwi, args.mask)
-    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire, args.device)
+    batch = _batch(dwi, mask, _mesh(args), args.wire, args.device)
     adc, s0 = tt.adc_fit(dwi, mask, batch=batch)
     _outdir(args.outbase)
     tt.mri_write(adc, args.outbase + "_adc.nii.gz")
@@ -98,7 +100,7 @@ def cmd_dti(args) -> int:
     import fibers_tpu_torch as tt
 
     dwi, mask = _read_pair(args.dwi, args.mask)
-    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire, args.device)
+    batch = _batch(dwi, mask, _mesh(args), args.wire, args.device)
     dti = tt.dti_fit(dwi, mask, batch=batch)
     _outdir(args.outbase)
     tt.dti_write(dti, args.outbase)
@@ -110,7 +112,7 @@ def cmd_gqi(args) -> int:
     import fibers_tpu_torch as tt
 
     dwi, mask = _read_pair(args.dwi, args.mask)
-    batch = _batch(dwi, mask, _mesh(args.mesh), args.wire, args.device)
+    batch = _batch(dwi, mask, _mesh(args), args.wire, args.device)
     gqi = tt.gqi_rec(dwi, mask, _sphere(args.sphere), sigma=args.sigma,
                      batch=batch)
     _outdir(args.outbase)
@@ -124,7 +126,7 @@ def cmd_dsi(args) -> int:
 
     dwi, mask = _read_pair(args.dwi, args.mask)
     dsi = tt.dsi_rec(dwi, mask, _sphere(args.sphere),
-                     hann_width=args.hann_width, mesh=_mesh(args.mesh),
+                     hann_width=args.hann_width, mesh=_mesh(args),
                      wire=args.wire, device=args.device)
     _outdir(args.outbase)
     tt.dsi_write(dsi, args.outbase)
@@ -142,7 +144,7 @@ def cmd_rumba(args) -> int:
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
         on_mismatch=args.on_mismatch, signal_wire=args.wire,
-        mesh=_mesh(args.mesh), device=args.device)
+        mesh=_mesh(args), device=args.device)
     _outdir(args.outbase)
     tt.rumba_write(rec, args.outbase)
     print(f"wrote {args.outbase}_*.nii.gz (RUMBA-SD, snr_mean="
@@ -155,7 +157,7 @@ def cmd_structens(args) -> int:
 
     mri = tt.mri_read(args.vol)
     evec, evals = tt.st_recon(np.asarray(mri.vol), args.sigma, args.rho,
-                              mesh=_mesh(args.mesh), device=args.device)
+                              mesh=_mesh(args), device=args.device)
     _outdir(args.outbase)
     ev = tt.MRI.like(mri, 9, np.float32)
     ev.vol = evec.reshape(evec.shape[:3] + (9,)).astype(np.float32)
@@ -204,7 +206,7 @@ def cmd_stream(args) -> int:
         nsub=args.nsub, len_min=args.len_min,
         ang_thresh=args.ang_thresh, step_size=args.step_size,
         smooth_coeff=args.smooth_coeff, wire=args.wire,
-        seed_rng=args.seed_rng, mesh=_mesh(args.mesh),
+        seed_rng=args.seed_rng, mesh=_mesh(args),
         trk_sink=args.output, device=args.device, **kw)
     print(f"wrote {args.output} ({tract.n_count} streamlines)")
     return 0
@@ -218,7 +220,7 @@ def cmd_pipeline(args) -> int:
     dwi, mask = _read_pair(args.dwi, args.mask)
     os.makedirs(args.outdir, exist_ok=True)
     base = os.path.join(args.outdir, "")
-    mesh = _mesh(args.mesh)
+    mesh = _mesh(args)
     batch = _batch(dwi, mask, mesh, args.wire, args.device)
 
     dti = tt.dti_fit(dwi, mask, batch=batch)

@@ -3,7 +3,9 @@
 Counterpart of fibers_tpu/core/handoff.py: a reconstruction's peak batch
 stays on the device as a `DevicePeaks`, and `stream` builds its
 orientation field from it with one scatter on the device, with no fetch
-and no re-upload.
+and no re-upload.  The peaks of a fit over a sharded batch stay sharded
+(parallel/mesh.py:ShardedRows); `stream` gathers their rows onto the
+device that builds the field.
 """
 
 from __future__ import annotations
@@ -25,12 +27,13 @@ class DevicePeaks:
     vecs: [N, npeak, 3] unit directions (zero rows = no peak).
     amp:  [N, npeak] per-peak amplitudes (GQI qa) — `stream` thresholds
           these at f_thresh.
+    Both are tensors, or ShardedRows of a sharded fit.
     idx:  flat voxel indices (C order) of the N batch rows.
     ref:  an MRI carrying the geometry (shape, volres, vox2ras).
     """
 
-    vecs: torch.Tensor
-    amp: torch.Tensor
+    vecs: object
+    amp: object
     idx: np.ndarray
     ref: object
 

@@ -37,6 +37,7 @@ from ..device import resolve
 from ..io.dispatch import mri_write_struct
 from ..ops.masked import gather_frames, mask_indices
 from ..ops.peaks import build_neighbors, peak_mask, top_peaks
+from ..parallel.mesh import ShardedRows, as_mesh, shard_max
 
 __all__ = ["DSI", "dsi_rec", "dsi_write"]
 
@@ -213,10 +214,14 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     the masked signals in one upload through `prepare_batch`, and on the
     CPU the chunks slice the gathered host rows, as in the reference.
     `wire`: "auto8" (the default), "auto" and "f32" all upload exact
-    float32; the quantized wires raise (ROADMAP A14).  `mesh=` is not
-    ported yet (ROADMAP A13).  `timings`: a dict that receives the stage
-    wall times, each ending in a device synchronize: upload (the host
-    tables and the uploads), chunks and finalize.
+    float32; the quantized wires raise (ROADMAP A14).  `mesh`
+    (parallel/mesh.py), or a `batch` sharded over one: each chunk's rows
+    are sharded over the data axis (the chunk rounds to a multiple of it
+    and the memory budget holds per device), each device runs its rows'
+    chunks, and the QA normaliser is a maximum over the shards; the
+    results stay sharded.  `timings`: a dict that receives the stage wall
+    times, each ending in a device synchronize: upload (the host tables
+    and the uploads), chunks and finalize.
 
     Returns a `DSI` whose volumes stay on the device until host code
     reads them, with the peaks as `DevicePeaks` for `stream`.
@@ -226,18 +231,16 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     if dwi.bvec is None or np.asarray(dwi.bvec).size == 0:
         raise ValueError("Missing gradient table from input DWI structure")
     _check_wire(wire)
-    if mesh is not None:
-        raise NotImplementedError(
-            "dsi_rec(mesh=): multi-device DSI is not ported yet "
-            "(ROADMAP A13)")
+    mesh = as_mesh(mesh)
     if odf_dirs is None:
         from ..core import odf as _odf
         odf_dirs = _odf.sphere_642
 
-    def stage(name, t0, dev):
+    def stage(name, t0, devs):
         if timings is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            for d in devs:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
             timings[name] = time.time() - t0
         return time.time()
 
@@ -261,19 +264,39 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     iq_half = half_map[iq_flat]
     cells, cols = _unique_cells(iq_flat)
 
-    dev = batch.signals.device if batch is not None else resolve(device)
-    if batch is None and dev.type != "cpu":
-        from ..core.batch import prepare_batch
-        batch = prepare_batch(dwi, mask, wire="f32", device=dev)
+    # the mesh of a sharded batch; a one-device mesh runs unsharded there
+    if mesh is None and batch is not None:
+        mesh = batch.mesh
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh.flat_devices[0], None
+    from ..core.batch import prepare_batch
+    if mesh is not None:
+        if batch is None or not isinstance(batch.signals, ShardedRows):
+            batch = prepare_batch(dwi, mask, mesh=mesh, wire="f32")
+        dev = mesh.data_devices[0]
+    else:
+        dev = batch.signals.device if batch is not None else \
+            resolve(device)
+        if batch is None and dev.type != "cpu":
+            batch = prepare_batch(dwi, mask, wire="f32", device=dev)
+    ndata = mesh.ndata if mesh is not None else 1
+    devs = [dev] if mesh is None else mesh.distinct_devices()
 
     # chunk guard: grid f32 + half spectrum (c64 over nfft^3/2) + FFT
-    # scratch ~= 12 bytes per grid cell per voxel
+    # scratch ~= 12 bytes per grid cell per voxel, per device; a sharded
+    # chunk splits evenly over the data axis (fibers_tpu/models/dsi.py:
+    # 249-266)
     budget = mem_budget
     if batch is not None:
-        budget = max(1e9, mem_budget - batch.signals.numel() * 4)
-    max_chunk = max(8, int(budget / (nfft ** 3 * 12)))
-    if chunk > max_chunk:
+        budget = max(1e9, mem_budget - batch.signals.numel() * 4 / ndata)
+    max_chunk = max(8, int(budget * ndata / (nfft ** 3 * 12)))
+    if chunk * ndata > max_chunk:
         chunk = 1 << int(np.floor(np.log2(max_chunk)))
+        if chunk % ndata:
+            chunk = max(ndata, (chunk // ndata) * ndata)
+    else:
+        chunk = chunk * ndata
+    per_dev = chunk // ndata
 
     if batch is not None:
         idx = batch.idx
@@ -285,34 +308,62 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     n = len(idx)
     nq = len(iq_flat)
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    tables = (cells, cols, hann, iq_half.astype(np.int64), wmat_aug,
+              verts_first, nbr, nbr_ok)
+    args = {d: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                     for a in tables) for d in devs}
+    t0 = stage("upload", t0, devs)
 
-    args = (put(cells), put(cols), put(hann), put(iq_half.astype(np.int64)),
-            put(wmat_aug), put(verts_first), put(nbr), put(nbr_ok))
-    t0 = stage("upload", t0, dev)
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    pdf_b = torch.empty((n, nq), **f32)
-    odf_b = torch.empty((n, nvert), **f32)
-    vecs_b = torch.empty((n, NPEAK, 3), **f32)
-    qa_b = torch.empty((n, NPEAK), **f32)
-    # the global QA normaliser stays on the device: no host sync per chunk
-    odfmax = torch.zeros((), **f32)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        pdf_c, odf_c, vecs_c, qa_c, odfmean = _dsi_kernel(
-            signals[lo:hi].to(dev), *args, nfft=nfft)
-        pdf_b[lo:hi] = pdf_c
-        odf_b[lo:hi] = odf_c
-        vecs_b[lo:hi] = vecs_c
-        qa_b[lo:hi] = qa_c
-        odfmax = torch.maximum(odfmax, odfmean.max())
-    t0 = stage("chunks", t0, dev)
+    # one part per local shard (the whole batch without a mesh), each on
+    # its device; the chunk loop interleaves the parts
+    if isinstance(signals, ShardedRows):
+        real = signals[:n]
+        parts = [None if s is None else (s, s.device) for s in real.shards]
+    else:
+        parts = [(signals, dev)]
+    outs = []
+    for part in parts:
+        if part is None:
+            outs.append(None)
+            continue
+        rows, d = part[0].shape[0], part[1]
+        f32 = dict(dtype=torch.float32, device=d)
+        # the QA normaliser stays on the device: no host sync per chunk
+        outs.append([torch.empty((rows, nq), **f32),
+                     torch.empty((rows, nvert), **f32),
+                     torch.empty((rows, NPEAK, 3), **f32),
+                     torch.empty((rows, NPEAK), **f32),
+                     torch.zeros((), **f32)])
+    longest = max(p[0].shape[0] for p in parts if p is not None)
+    for lo in range(0, longest, per_dev):
+        for part, o in zip(parts, outs):
+            if part is None or lo >= part[0].shape[0]:
+                continue
+            sig, d = part
+            hi = min(lo + per_dev, sig.shape[0])
+            pdf_c, odf_c, vecs_c, qa_c, odfmean = _dsi_kernel(
+                sig[lo:hi].to(d), *args[d], nfft=nfft)
+            o[0][lo:hi] = pdf_c
+            o[1][lo:hi] = odf_c
+            o[2][lo:hi] = vecs_c
+            o[3][lo:hi] = qa_c
+            o[4] = torch.maximum(o[4], odfmean.max())
+    t0 = stage("chunks", t0, devs)
 
     # global QA normalisation (reference: src/dsi.jl:263-267)
-    qa_b = torch.where(odfmax > 0, qa_b / torch.clamp_min(odfmax, 1e-30),
-                       qa_b)
+    local = [o for o in outs if o is not None]
+    maxes = [o[4] for o in local]
+    if mesh is not None:
+        maxes = shard_max(maxes, mesh)
+    for o, odfmax in zip(local, maxes):
+        o[3] = torch.where(odfmax > 0, o[3] / torch.clamp_min(odfmax, 1e-30),
+                           o[3])
+    if mesh is None:
+        pdf_b, odf_b, vecs_b, qa_b = outs[0][:4]
+    else:
+        pdf_b, odf_b, vecs_b, qa_b = (
+            ShardedRows([None if o is None else o[k] for o in outs], mesh,
+                        real.rows) for k in range(4))
     shape3 = mask.vol.shape[:3]
 
     def lazy(values, nframes):
@@ -325,7 +376,7 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     out = DSI(pdf=lazy(pdf_b, nq), odf=lazy(odf_b, nvert), peak=peak, qa=qa,
               _peak_dev=DevicePeaks(vecs=vecs_b, amp=qa_b, idx=idx,
                                     ref=mask))
-    stage("finalize", t0, dev)
+    stage("finalize", t0, devs)
     return out
 
 

@@ -5,6 +5,8 @@ solve plus the closed-form 3x3 eigendecomposition over the whole [N, nvol]
 batch, scattered back into host volumes (reference: src/dti.jl:164-316).
 The normal-equation products are plain large matrix products, left to
 `torch.matmul` in float32 (TF32 stays off; see fibers_tpu_torch.device).
+A batch sharded over a mesh runs the same kernel once per shard; the
+rows are gathered to the host for the scatter.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from ..core.mri import MRI
 from ..io.dispatch import mri_write_struct
 from ..ops.eig3 import eigh3
 from ..ops.masked import scatter_frames
+from ..parallel.mesh import ShardedRows
 
 __all__ = ["DTI", "adc_fit", "dti_fit", "dti_fit_ls", "dti_maps", "dti_write"]
 
@@ -162,30 +165,38 @@ def _dti_kernel(signals, A, ib0):
                                    device=packed.device))
 
 
+def _per_shard(kernel, signals, *tables):
+    """kernel(signals, *tables) with the numpy `tables` on the signals'
+    device; once per shard of a sharded batch."""
+    def run(s):
+        return kernel(s, *(torch.from_numpy(t).to(s.device) for t in tables))
+    if isinstance(signals, ShardedRows):
+        return signals.map(run)
+    return run(signals)
+
+
 def _batch_and_tables(dwi, mask, batch, device, design):
     if batch is None:
         from ..core.batch import prepare_batch
         batch = prepare_batch(dwi, mask, device=device)
-    dev = batch.signals.device
-    A = torch.from_numpy(design).to(dev)
     bval = np.asarray(dwi.bval)
-    ib0 = torch.from_numpy((bval == bval.min()).astype(np.float32)).to(dev)
-    return batch, A, ib0
+    return batch, design, (bval == bval.min()).astype(np.float32)
 
 
 def adc_fit(dwi: MRI, mask: MRI, batch=None, device=None):
     """Fit the apparent diffusion coefficient.  Returns (adc, s0) MRIs.
     (reference: src/dti.jl:164-213)
 
-    `batch`: an optional prepared `VoxelBatch`; without one the batch is
-    gathered onto `device` (None: the card)."""
+    `batch`: an optional prepared `VoxelBatch` (sharded over a mesh or
+    not); without one the batch is gathered onto `device` (None: the
+    card)."""
     if dwi.bval is None or len(dwi.bval) == 0:
         raise ValueError("Missing b-value table from input DWI structure")
     batch, A, ib0 = _batch_and_tables(
         dwi, mask, batch, device,
         _design_adc(np.asarray(dwi.bval, np.float32)))
-    adc_d, s0_d = _adc_kernel(batch.signals, A, ib0)
-    both = torch.stack([adc_d, s0_d])[:, :batch.n].cpu().numpy()
+    both = _per_shard(lambda *a: torch.stack(_adc_kernel(*a), dim=1),
+                      batch.signals, A, ib0)[:batch.n].cpu().numpy().T
 
     shape3 = mask.vol.shape[:3]
     adc = MRI.like(mask, 1, np.float32)
@@ -213,7 +224,8 @@ def dti_fit_ls(dwi: MRI, mask: MRI, batch=None, device=None) -> DTI:
         dwi, mask, batch, device,
         _design_dti(np.asarray(dwi.bval, np.float32),
                     np.asarray(dwi.bvec, np.float32)))
-    arr = _dti_kernel(batch.signals, A, ib0)[:batch.n].cpu().numpy()
+    arr = _per_shard(_dti_kernel, batch.signals, A, ib0)[:batch.n]
+    arr = arr.cpu().numpy()
 
     shape3 = mask.vol.shape[:3]
 

@@ -5,7 +5,9 @@ product over the masked voxel batch, the face-neighbour peak mask, and a
 top-3 in place of the reference's per-voxel sortperm (reference:
 src/gqi.jl:109-171).  On a CUDA batch the product, the peak mask, the
 per-voxel stats and the top-3 run in one hand-written kernel
-(ops/kernels/gqi_fused.py); on a CPU batch in plain PyTorch.
+(ops/kernels/gqi_fused.py); on a CPU batch in plain PyTorch.  A batch
+sharded over a mesh runs the kernel once per shard; the QA normaliser is
+then a maximum over the shards.
 
 Yeh et al. (2010), IEEE TMI 29(9):1626-1635.
 """
@@ -25,6 +27,7 @@ from ..core.odf import ODF, half_sphere
 from ..io.dispatch import mri_write_struct
 from ..ops.kernels.gqi_fused import NPEAK, gqi_fused
 from ..ops.peaks import build_neighbors, peak_mask
+from ..parallel.mesh import ShardedRows, shard_max
 
 __all__ = ["GQI", "gqi_rec", "gqi_write", "find_peaks", "gqi_design"]
 
@@ -56,16 +59,24 @@ def gqi_design(bval: np.ndarray, bvec: np.ndarray, odf_dirs: ODF,
     return np.sinc(verts @ bq.T).astype(np.float32)
 
 
-def _finish(odf, vals, idx, pvalid, odfmin, odfmean, valid, verts_first):
-    """Peak vectors, QA normalised by the global max mean ODF, and the ODF
-    zeroed outside valid voxels (reference: src/gqi.jl:154-168)."""
+def _odfmax(odfmean, valid):
+    """The batch's max mean ODF over valid voxels (a device scalar)."""
+    return torch.where(valid, odfmean, odfmean.new_zeros(())).max()
+
+
+def _finish(odf, vals, idx, pvalid, odfmin, odfmean, valid, verts_first,
+            odfmax=None):
+    """Peak vectors, QA normalised by the global max mean ODF (this
+    batch's unless `odfmax` gives it), and the ODF zeroed outside valid
+    voxels (reference: src/gqi.jl:154-168)."""
     zero = torch.zeros((), dtype=odf.dtype, device=odf.device)
     pvalid = pvalid & valid[:, None]
     # peak directions come from the FIRST half of the vertex table, the
     # antipodes of the directions in A (reference: src/gqi.jl:154-155)
     vecs = torch.where(pvalid[..., None], verts_first[idx], zero)
     qa = torch.where(pvalid, vals - odfmin[:, None], zero)
-    odfmax = torch.where(valid, odfmean, zero).max()
+    if odfmax is None:
+        odfmax = _odfmax(odfmean, valid)
     qa = qa / torch.clamp_min(odfmax, 1e-30)
     odf = torch.where(valid[:, None], odf, zero)
     return odf, vecs, qa, valid
@@ -81,6 +92,30 @@ def _gqi_kernel_fused(signals, A_t, verts_first, nbr, nbr_valid):
     valid = stats[:, 2] > 0
     return _finish(odf, vals, idx, vals > 0, stats[:, 0], stats[:, 1],
                    valid, verts_first)
+
+
+def _gqi_sharded(signals: ShardedRows, A_t, verts_first, nbr, nbr_ok):
+    """`_gqi_kernel_fused` over a sharded batch: the fused kernel once per
+    shard, the QA normaliser the maximum over every shard's valid rows.
+    The tables are host arrays, put once on each device.  Returns
+    ShardedRows (odf, vecs, qa)."""
+    tabs, parts = {}, []
+    for i, s in signals.local():
+        d = s.device
+        if d not in tabs:
+            tabs[d] = [torch.from_numpy(np.ascontiguousarray(t)).to(d)
+                       for t in (A_t, verts_first, nbr, nbr_ok)]
+        A, vf, nb, ok = tabs[d]
+        odf, _, stats, vals, idx = gqi_fused(s, A, nb, ok)
+        parts.append((odf, stats, vals, idx, vf))
+    maxes = shard_max([_odfmax(st[:, 1], st[:, 2] > 0)
+                       for _, st, _, _, _ in parts], signals.mesh)
+    outs = iter([_finish(odf, vals, idx, vals > 0, st[:, 0], st[:, 1],
+                         st[:, 2] > 0, vf, m)
+                 for (odf, st, vals, idx, vf), m in zip(parts, maxes)])
+    done = [None if s is None else next(outs) for s in signals.shards]
+    return tuple(ShardedRows([None if o is None else o[k] for o in done],
+                             signals.mesh, signals.rows) for k in range(3))
 
 
 def find_peaks(o, odf_dirs: ODF):
@@ -107,9 +142,9 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
 
     `impl`: "auto" runs the hand-written kernel on a CUDA batch and its
     plain PyTorch version on a CPU batch; "kernel" demands the kernel (and
-    raises on a CPU batch).  `batch`: an
-    optional prepared `VoxelBatch`; without one the batch is gathered
-    onto `device` (None: the card).
+    raises on a CPU batch).  `batch`: an optional prepared `VoxelBatch`,
+    sharded over a mesh or not; without one the batch is gathered onto
+    `device` (None: the card).
     """
     if dwi.bval is None or len(dwi.bval) == 0:
         raise ValueError("Missing b-value table from input DWI structure")
@@ -136,11 +171,15 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     if impl == "kernel" and dev.type != "cuda":
         raise ValueError(f"gqi_rec(impl='kernel') needs a CUDA batch, got "
                          f"one on {dev}")
-    vf = torch.from_numpy(np.ascontiguousarray(verts_first)).to(dev)
-    nb = torch.from_numpy(nbr).to(dev)
-    ok = torch.from_numpy(nbr_ok).to(dev)
-    A_t = torch.from_numpy(np.ascontiguousarray(A.T)).to(dev)
-    odf_b, vecs_b, qa_b, _ = _gqi_kernel_fused(signals, A_t, vf, nb, ok)
+    if isinstance(signals, ShardedRows):
+        odf_b, vecs_b, qa_b = _gqi_sharded(signals, A.T, verts_first, nbr,
+                                           nbr_ok)
+    else:
+        vf = torch.from_numpy(np.ascontiguousarray(verts_first)).to(dev)
+        nb = torch.from_numpy(nbr).to(dev)
+        ok = torch.from_numpy(nbr_ok).to(dev)
+        A_t = torch.from_numpy(np.ascontiguousarray(A.T)).to(dev)
+        odf_b, vecs_b, qa_b, _ = _gqi_kernel_fused(signals, A_t, vf, nb, ok)
 
     # every large output stays on the device: the volumes materialize on
     # the host on first access, and DevicePeaks feeds tractography

@@ -40,6 +40,10 @@ from ..ops.kernels.tv_fused import build_tables, embed_index, tv_fused
 from ..ops.kernels.tv_stencil import tv_multiplier
 from ..ops.masked import mask_indices
 from ..ops.peaks import topk_lower_first
+from ..parallel.mesh import (ShardedRows, _move, as_mesh, components_to_rows,
+                             gather_rows, map_shards, pad_to_multiple,
+                             put_batch, replicate, rows_to_components,
+                             shard_sum)
 from ..utils.coords import ang2rot, cart2sph
 
 __all__ = ["RUMBASD", "rumba_rec", "rumba_write", "rumba_peaks",
@@ -193,6 +197,27 @@ def _mm(a, b, precision):
     return torch.matmul(a, b)
 
 
+def _rl(dodf_sig, dodf, signal, kernel, n_order, precision):
+    """The Bessel ratio and the Richardson-Lucy ratio of one iteration."""
+    iratio = besseli_ratio(n_order, dodf_sig)
+    rl_num = _mm(signal * iratio, kernel, precision)
+    rl_den = _mm(dodf, kernel, precision) + 1e-7
+    return iratio, rl_num / rl_den
+
+
+def _refit(fodf, signal, sig2, iratio, kernel, n_order, precision):
+    """dODF, its signal ratio and the noise variance of the new fODF
+    (reference: src/rusd.jl:305-323)."""
+    dodf = _mm(fodf, kernel.T, precision)
+    dodf_sig = (signal * dodf) / sig2
+    resid = ((signal ** 2 + dodf ** 2) / 2
+             - (sig2 * dodf_sig) * iratio)
+    ndir = signal.shape[1]
+    sig2 = resid.sum(dim=1, keepdim=True) / (n_order * ndir)
+    sig2 = torch.clamp(sig2, (1.0 / 80) ** 2, (1.0 / 8) ** 2)
+    return dodf, dodf_sig, sig2
+
+
 def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
                 idx_mask, n_order, ipat_factor, use_tv, shape3,
                 precision="high", tv_bf16=False, tabs=None, tv_buf=None):
@@ -206,14 +231,8 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
     (tv_fused.build_tables) and the multiplier buffer `tv_buf` are built
     here when not given.
     Returns (fodf, dodf, dodf_sig, sig2, lam_flat, snr)."""
-    eps = 1e-7
     nmask = idx_mask.shape[0]
-
-    iratio = besseli_ratio(n_order, dodf_sig)
-
-    rl_num = _mm(signal * iratio, kernel, precision)
-    rl_den = _mm(dodf, kernel, precision) + eps
-    rl = rl_num / rl_den
+    iratio, rl = _rl(dodf_sig, dodf, signal, kernel, n_order, precision)
 
     if use_tv:
         if tv_buf is None:
@@ -225,15 +244,8 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
     else:
         fodf = torch.clamp_min(fodf * rl, 0.0)
 
-    dodf = _mm(fodf, kernel.T, precision)
-    dodf_sig = (signal * dodf) / sig2
-
-    # Noise-variance update (reference: src/rusd.jl:314-323)
-    resid = ((signal ** 2 + dodf ** 2) / 2
-             - (sig2 * dodf_sig) * iratio)
-    ndir = signal.shape[1]
-    sig2 = resid.sum(dim=1, keepdim=True) / (n_order * ndir)
-    sig2 = torch.clamp(sig2, (1.0 / 80) ** 2, (1.0 / 8) ** 2)
+    dodf, dodf_sig, sig2 = _refit(fodf, signal, sig2, iratio, kernel,
+                                  n_order, precision)
 
     # Lambda update (reference: src/rusd.jl:326-339), over the real rows
     if use_tv:
@@ -248,9 +260,111 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
     return fodf, dodf, dodf_sig, sig2, lam_flat, snr
 
 
+def mesh_tv_width(ncomp: int, ndev: int) -> int:
+    """Components per device in the TV reshard: C split over `ndev`
+    devices, rounded up to a multiple of 4 so that each cell's row is a
+    multiple of 16 bytes (f32) or 8 (bf16), which the stencil kernel
+    stages with its wide copies (csrc/tv_common.cuh:sweep_copy_bytes).
+    The padding components are zero and are cut after the kernel."""
+    return pad_to_multiple(-(-ncomp // ndev), 4)
+
+
+@dataclass
+class _MeshTV:
+    """RUMBA's TV term on a mesh (fibers_tpu/models/rumba.py:220-281): the
+    row-sharded fODF, its components padded with zeros to `width` per
+    mesh device (`mesh_tv_width`), resharded so each device holds every
+    row of its components; each device embeds its [X, Y, Z, width] stack
+    into the crop (`embed`: cell -> row, the zero row n for cells outside
+    the mask), runs `tv_multiplier` on it, gathers the rows back (`back`:
+    row -> cell, cell 0 for padding rows, whose fODF is zero) and the
+    multiplier reshards to rows.  `embed`/`back` are per device."""
+
+    shape3: tuple
+    ncomp: int
+    width: int
+    embed: dict
+    back: dict
+    dtype: torch.dtype
+
+    @classmethod
+    def build(cls, mesh, idx_tv, tv_shape3, n_rows, ncomp, tv_bf16):
+        nxyz = int(np.prod(tv_shape3))
+        nmask = len(idx_tv)
+        if nmask and (int(idx_tv.min()) < 0 or int(idx_tv.max()) >= nxyz):
+            raise ValueError("rumba: TV cells outside the crop")
+        if nmask > n_rows:
+            raise ValueError("rumba: more mask voxels than batch rows")
+        cellrow = np.full(nxyz, n_rows, np.int64)
+        cellrow[idx_tv] = np.arange(nmask)
+        rowcell = np.zeros(n_rows, np.int64)
+        rowcell[:nmask] = idx_tv
+        return cls(tuple(tv_shape3), ncomp, mesh_tv_width(ncomp, mesh.size),
+                   replicate(cellrow, mesh), replicate(rowcell, mesh),
+                   torch.bfloat16 if tv_bf16 else torch.float32)
+
+    def __call__(self, fodf: ShardedRows, lam3: dict) -> ShardedRows:
+        pad = self.width * fodf.mesh.size - self.ncomp
+        x = fodf.map(lambda f: torch.nn.functional.pad(
+            f.to(self.dtype), (0, pad)))
+        out = {}
+        for k, blk in rows_to_components(x, self.width).items():
+            d = blk.device
+            rows = torch.cat([blk, blk.new_zeros((1, self.width))])
+            v = rows[self.embed[d]].reshape(self.shape3 + (self.width,))
+            tv = tv_multiplier(v, lam3[d]).reshape(-1, self.width)
+            out[k] = tv[self.back[d]]
+        return components_to_rows(out, x).map(lambda t: t[:, :self.ncomp])
+
+
+def _rumba_step_sharded(fodf, dodf, dodf_sig, sig2, lam, signal, kernel,
+                        idx_mask, n_order, ipat_factor, use_tv, tv,
+                        precision):
+    """`_rumba_step` over ShardedRows state: the row-wise work once per
+    shard (`kernel` and `idx_mask` {device: tensor}), the TV multiplier
+    resharded over components (`tv`, a `_MeshTV`), and lambda from the
+    real rows of every shard.  `lam` is {device: [prod(tv.shape3)]} over
+    the mesh's devices."""
+    mesh = fodf.mesh
+    nmask = next(iter(idx_mask.values())).shape[0]
+    iratio, rl = map_shards(
+        lambda ds, d, s, k: _rl(ds, d, s, k, n_order, precision),
+        dodf_sig, dodf, signal, kernel)
+    if use_tv:
+        lam3 = {d: v.reshape(tv.shape3) for d, v in lam.items()}
+        fodf = map_shards(lambda f, r, t: torch.clamp_min(f * r * t, 0.0),
+                          fodf, rl, tv(fodf, lam3))
+    else:
+        fodf = map_shards(lambda f, r: torch.clamp_min(f * r, 0.0), fodf, rl)
+    dodf, dodf_sig, sig2 = map_shards(
+        lambda f, s, s2, ir, k: _refit(f, s, s2, ir, k, n_order, precision),
+        fodf, signal, sig2, iratio, kernel)
+    if use_tv:
+        real = sig2[:nmask]
+        if ipat_factor == 1:
+            tot = shard_sum([s.sum() for _, s in real.local()], mesh)[0]
+            m = torch.clamp_min(tot / nmask, (1.0 / 30) ** 2)
+            lam = {d: _move(m, d).expand(v.shape).contiguous()
+                   for d, v in lam.items()}
+        else:
+            d0 = next(iter(lam))
+            lam0 = torch.zeros_like(lam[d0]).index_put_(
+                (idx_mask[d0],), gather_rows(real, d0)[:, 0])
+            lam = {d: _move(lam0, d) for d in lam}
+    snr = sig2.map(lambda s: 1.0 / torch.sqrt(s))
+    return fodf, dodf, dodf_sig, sig2, lam, snr
+
+
 def _snr_stats(sig2, nmask):
     """Mean and std (ddof=1) of SNR = 1/sigma over the real rows, as two
-    device scalars."""
+    device scalars (over every shard of a ShardedRows)."""
+    if isinstance(sig2, ShardedRows):
+        parts = [1.0 / torch.sqrt(s[:, 0]) for _, s in sig2[:nmask].local()]
+        ms = [t / nmask for t in shard_sum([p.sum() for p in parts],
+                                           sig2.mesh)]
+        var = shard_sum([((p - m) ** 2).sum() for p, m in zip(parts, ms)],
+                        sig2.mesh)[0] / max(nmask - 1, 1)
+        return ms[0], torch.sqrt(torch.clamp_min(var, 0.0))
     snr = 1.0 / torch.sqrt(sig2[:nmask, 0])
     m = snr.mean()
     var = ((snr - m) ** 2).sum() / max(nmask - 1, 1)
@@ -365,12 +479,14 @@ def _signal_host(flat, idx, ib0):
         [(b0_mean > 0).astype(np.float32)[:, None], dwis], axis=1)
 
 
-def _lap(timings, name, t0, dev):
+def _lap(timings, name, t0, devs):
     """Store the wall seconds since `t0` under `name` in `timings` (after
-    a device synchronize) when `timings` is a dict; return a new t0."""
+    synchronizing the devices `devs`) when `timings` is a dict; return a
+    new t0."""
     if timings is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         timings[name] = time.perf_counter() - t0
     return time.perf_counter()
 
@@ -466,9 +582,18 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     parity: the reference's u12/u16 upload codecs are not ported (ROADMAP
     A14), so every value uploads exact f32.
 
-    Not carried over: `mesh=` (ROADMAP A13) and the pace aborts of
-    `abort_s_per_iter` (a workaround for a TPU runtime), which raise
-    `NotImplementedError` unless left None.
+    `mesh` (parallel/mesh.py), or a `batch` sharded over one: the state
+    is row-sharded over the mesh's data axis and the TV term reshards its
+    components over every device of the mesh, where the dense stencil
+    kernel (`tv_multiplier`, f32, or bf16 with `tv_bf16`) runs on each
+    device's [X, Y, Z, C/ndev] stack; sigma^2's mean and lambda take the
+    real rows of every shard.  `tv_fused` stays the one-device path, as
+    in the reference.  A batch that is not sharded is resharded over
+    `mesh`.
+
+    Not carried over: the pace aborts of `abort_s_per_iter` (a
+    workaround for a TPU runtime), which raise `NotImplementedError`
+    unless left None.
 
     `timings`: a dict that receives the wall seconds of the stages
     "signal" (kernel, signal matrix, upload), "iterate" and "post" (SNR,
@@ -480,10 +605,7 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got "
                          f"{precision!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "rumba_rec(mesh=): multi-device RUMBA-SD is not ported yet "
-            "(ROADMAP A13)")
+    mesh = as_mesh(mesh)
     if abort_s_per_iter is not None:
         raise NotImplementedError(
             "rumba_rec(abort_s_per_iter=): pace aborts are not carried over "
@@ -523,36 +645,51 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     # TV runs on the mask bounding box + halo, not the full volume
     tv_shape3, tv_nxyz, idx_tv, tv_lo = _tv_bbox(idx, shape3)
 
-    # Signal matrix: average b0 first, then DWIs, normalised by b0
-    # (reference: src/rusd.jl:450-465)
-    if batch is not None:
-        dev = batch.signals.device
-        signal = _signal_from_batch(
-            batch.signals,
-            torch.from_numpy(np.flatnonzero(ib0)).to(dev),
-            torch.from_numpy(np.flatnonzero(~ib0)).to(dev))
-        n_rows = batch.n_pad
-    else:
-        dev = resolve(device)
-        vol = np.asarray(dwi.vol)
-        signal = upload(_signal_host(vol.reshape(-1, vol.shape[3]), idx,
-                                      ib0), dev)
-        n_rows = nmask
+    # the mesh of a sharded batch; a one-device mesh runs unsharded there
+    if mesh is None and batch is not None:
+        mesh = batch.mesh
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh.flat_devices[0], None
 
-    t0 = _lap(timings, "signal", t0, dev)
+    # Signal matrix: average b0 first, then DWIs, normalised by b0
+    # (reference: src/rusd.jl:450-465); sharded over the mesh's data axis
+    if batch is not None:
+        sig_b = batch.signals
+        smesh = sig_b.mesh if isinstance(sig_b, ShardedRows) else None
+        signal = map_shards(_signal_from_batch, sig_b,
+                            replicate(np.flatnonzero(ib0), smesh,
+                                      sig_b.device),
+                            replicate(np.flatnonzero(~ib0), smesh,
+                                      sig_b.device))
+        if mesh is not None and not isinstance(signal, ShardedRows):
+            signal = put_batch(signal.cpu().numpy(), mesh)
+    else:
+        vol = np.asarray(dwi.vol)
+        host = _signal_host(vol.reshape(-1, vol.shape[3]), idx, ib0)
+        signal = upload(host, resolve(device)) if mesh is None else \
+            put_batch(host, mesh)
+    n_rows = signal.shape[0]
+    dev = signal.device
+    devs = [dev] if mesh is None else mesh.distinct_devices()
+
+    t0 = _lap(timings, "signal", t0, devs)
     nbr, nbr_ok = _angular_neighbors(odf_dirs)
     half_verts = odf_dirs.vertices[:nvert].astype(np.float32)
 
     # Initialisation (reference: src/rusd.jl:522-537)
     fodf0 = np.full(ncomp, 1.0 / ncomp, np.float32)
     lam0 = (1.0 / 15) ** 2
-    kernel_d = torch.from_numpy(kernel).to(dev)
-    fodf = torch.from_numpy(fodf0).to(dev).expand(n_rows, ncomp).clone()
-    dodf = torch.from_numpy(kernel @ fodf0).to(dev).expand(
-        n_rows, ndir).clone()
-    sig2 = torch.full((n_rows, 1), lam0, dtype=torch.float32, device=dev)
-    lam_flat = torch.full((tv_nxyz,), lam0, dtype=torch.float32, device=dev)
-    idx_d = torch.from_numpy(idx_tv).to(dev)
+
+    def rows_of(row):
+        return map_shards(lambda s: torch.from_numpy(row).to(s.device).expand(
+            s.shape[0], len(row)).clone(), signal)
+
+    kernel_d = replicate(kernel, mesh, dev)
+    fodf = rows_of(fodf0)
+    dodf = rows_of(kernel @ fodf0)
+    sig2 = rows_of(np.full(1, lam0, np.float32))
+    lam_flat = replicate(np.full(tv_nxyz, lam0, np.float32), mesh, dev)
+    idx_d = replicate(idx_tv, mesh, dev)
 
     it_start = 0
     if checkpoint_path is not None and os.path.isfile(checkpoint_path):
@@ -571,57 +708,71 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
                 "or is unreadable; starting fresh (on_mismatch='fresh')",
                 stacklevel=2)
         else:
-            fodf = torch.from_numpy(fodf_h).to(dev)
-            sig2 = torch.from_numpy(sig2_h).to(dev)
-            lam_flat = torch.from_numpy(lam_h).to(dev)
-            dodf = torch.matmul(fodf, kernel_d.T)
+            if mesh is None:
+                fodf = torch.from_numpy(fodf_h).to(dev)
+                sig2 = torch.from_numpy(sig2_h).to(dev)
+            else:
+                fodf, sig2 = put_batch(fodf_h, mesh), put_batch(sig2_h, mesh)
+            lam_flat = replicate(lam_h, mesh, dev)
+            dodf = map_shards(lambda f, k: torch.matmul(f, k.T), fodf,
+                              kernel_d)
             it_start = it_ck
             print(f"Resuming RUMBA-SD from iteration {it_start} "
                   f"({checkpoint_path})")
-    dodf_sig = (signal * dodf) / sig2
+    dodf_sig = map_shards(lambda s, d, s2: (s * d) / s2, signal, dodf, sig2)
 
-    tabs = tv_buf = None
-    if use_tv:
+    tabs = tv_buf = mesh_tv = None
+    if use_tv and mesh is None:
         tv_buf = torch.ones((n_rows, ncomp), dtype=torch.float32,
                             device=dev)
         tabs = build_tables(idx_tv, tv_shape3, dev)
+    elif use_tv:
+        mesh_tv = _MeshTV.build(mesh, idx_tv, tv_shape3, n_rows, ncomp,
+                                tv_bf16)
 
     # Iterate (verbose prints the per-iteration SNR like the reference,
     # reference: src/rusd.jl:543-556)
-    snr = 1.0 / torch.sqrt(sig2)
     for it in range(it_start + 1, niter + 1):
-        fodf, dodf, dodf_sig, sig2, lam_flat, snr = _rumba_step(
-            fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d, idx_d,
-            n_order, ipat_factor, use_tv, tv_shape3, precision, tv_bf16,
-            tabs=tabs, tv_buf=tv_buf)
+        if mesh is None:
+            fodf, dodf, dodf_sig, sig2, lam_flat, _ = _rumba_step(
+                fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
+                idx_d, n_order, ipat_factor, use_tv, tv_shape3, precision,
+                tv_bf16, tabs=tabs, tv_buf=tv_buf)
+        else:
+            fodf, dodf, dodf_sig, sig2, lam_flat, _ = _rumba_step_sharded(
+                fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
+                idx_d, n_order, ipat_factor, use_tv, mesh_tv, precision)
         if verbose:
-            s = snr[:nmask]
-            sm = float(s.mean())
-            ss = float(s.std(correction=1)) if nmask > 1 else 0.0
+            sm_d, ss_d = _snr_stats(sig2, nmask)
+            ss = float(ss_d) if nmask > 1 else 0.0
             print(f"Iteration {it} of {niter}")
-            print(f"Estimated mean SNR (s0/sigma) = {sm} (+-) {ss}")
+            print(f"Estimated mean SNR (s0/sigma) = {float(sm_d)} (+-) {ss}")
         if (checkpoint_path is not None and checkpoint_every > 0
                 and it % checkpoint_every == 0 and it < niter):
             tmp = checkpoint_path + ".tmp.npz"
+            lam_h = lam_flat if mesh is None else next(iter(lam_flat.values()))
             np.savez(tmp, fodf=fodf.cpu().numpy(), sig2=sig2.cpu().numpy(),
-                     lam_flat=lam_flat.cpu().numpy(), iteration=it,
+                     lam_flat=lam_h.cpu().numpy(), iteration=it,
                      nmask=nmask, ncomp=ncomp, niter=niter, version=2,
                      n_rows=n_rows, tv_lo=np.asarray(tv_lo),
                      tv_shape3=np.asarray(tv_shape3))
             os.replace(tmp, checkpoint_path)
 
-    t0 = _lap(timings, "iterate", t0, dev)
+    t0 = _lap(timings, "iterate", t0, devs)
     sm_d, ss_d = _snr_stats(sig2, nmask)
     snr_mean = float(sm_d)
     snr_std = float(ss_d) if nmask > 1 else 0.0
 
-    # Energy normalisation + iso embedding + GFA + peaks, on the device
+    # Energy normalisation + iso embedding + GFA + peaks, on the device(s)
     # (reference: src/rusd.jl:560-633)
-    fodf_full, fgm_d, fcsf_d, f_iso_d, gfa_d = _rumba_post(fodf, nvert)
-    vecs_d = _rumba_peaks_kernel(
-        fodf_full, f_iso_d, torch.from_numpy(half_verts).to(dev),
-        torch.from_numpy(nbr).long().to(dev),
-        torch.from_numpy(nbr_ok).to(dev), FTHRESH)
+    fodf_full, fgm_d, fcsf_d, f_iso_d, gfa_d = map_shards(
+        lambda f: _rumba_post(f, nvert), fodf)
+    vecs_d = map_shards(
+        lambda ff, fi, hv, nb, ok: _rumba_peaks_kernel(ff, fi, hv, nb, ok,
+                                                       FTHRESH),
+        fodf_full, f_iso_d, replicate(half_verts, mesh, dev),
+        replicate(nbr.astype(np.int64), mesh, dev),
+        replicate(nbr_ok, mesh, dev))
 
     # every large output stays on the device until host code reads it
     def vol_of(values, nframes):
@@ -629,8 +780,8 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         m.vol = LazyVolume(values, idx, shape3, nframes)
         return m
 
-    unit_d, amp_d = split_unit_amp(vecs_d)
-    _lap(timings, "post", t0, dev)
+    unit_d, amp_d = map_shards(split_unit_amp, vecs_d)
+    _lap(timings, "post", t0, devs)
     return RUMBASD(
         fodf=vol_of(fodf_full, nvert),
         fgm=vol_of(fgm_d, 1),

@@ -6,6 +6,13 @@ batched closed-form 3x3 eigensolver (reference: src/structens.jl:13-88).
 Each separable 1-D filter is one banded [n, n] matrix contracted over
 the filtered axis with `torch.tensordot`, in float32 with TF32 off (the
 reference runs it at Precision.HIGHEST).
+
+On a mesh the volume is cut into slabs along its first axis that the
+data-axis size divides; each device filters its slab plus a halo as
+wide as the filters reach (pre-smooth radius + 1 for Scharr +
+post-smooth radius) and keeps the slab.  Along the cut axis the band is
+built for the extended slab with the reflect boundary of the whole
+volume, so only the volume's own faces reflect.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 from ..core.lazy import LazyArray
 from ..device import resolve
 from ..ops.eig3 import eigh3
+from ..parallel.mesh import _move, as_mesh
 
 __all__ = ["st_recon", "st_eigen"]
 
@@ -56,40 +64,61 @@ def _band_matrix(n: int, kernel: np.ndarray) -> np.ndarray:
     return b
 
 
-def _conv1d_reflect(vol, kernel, axis):
+def _band_slab(n: int, lo: int, hi: int, kernel: np.ndarray) -> np.ndarray:
+    """The rows and columns lo:hi of `_band_matrix(n, kernel)`: the band
+    of the slab [lo, hi) of an axis of length n, reflecting at the axis's
+    own ends.  Taps that fall outside the slab are dropped; they reach
+    only halo rows, which the caller crops."""
+    r = (len(kernel) - 1) // 2
+    b = np.zeros((hi - lo, hi - lo), np.float32)
+    for i in range(lo, hi):
+        for t, w in enumerate(np.asarray(kernel, np.float64)):
+            j = i + t - r
+            while j < 0 or j >= n:
+                j = -1 - j if j < 0 else 2 * n - 1 - j
+            if lo <= j < hi:
+                b[i - lo, j - lo] += w
+    return b
+
+
+def _conv1d_reflect(vol, kernel, axis, slab=None):
     """Separable 1-D correlation along `axis` with reflect ("symmetric")
     boundary, matching imfilter(..., "reflect"): the banded [n, n] matrix
-    contracted over the filtered axis."""
-    b = torch.from_numpy(_band_matrix(vol.shape[axis], kernel)).to(
-        vol.device)
+    contracted over the filtered axis.  `slab` (axis, lo, hi, n): `vol`
+    holds rows lo:hi of an axis of length n, filtered with `_band_slab`."""
+    if slab is not None and slab[0] == axis:
+        b = _band_slab(slab[3], slab[1], slab[2], kernel)
+    else:
+        b = _band_matrix(vol.shape[axis], kernel)
+    b = torch.from_numpy(b).to(vol.device)
     out = torch.tensordot(b, torch.movedim(vol, axis, 0), dims=1)
     return torch.movedim(out, 0, axis)
 
 
-def _smooth(vol, sigma):
+def _smooth(vol, sigma, slab=None):
     k = _gaussian_kernel1d(sigma)
     for ax in range(3):
-        vol = _conv1d_reflect(vol, k, ax)
+        vol = _conv1d_reflect(vol, k, ax, slab)
     return vol
 
 
-def _scharr_grad(vol, axis):
+def _scharr_grad(vol, axis, slab=None):
     for ax in range(3):
         k = _SCHARR_DERIV if ax == axis else _SCHARR_SMOOTH
-        vol = _conv1d_reflect(vol, k, ax)
+        vol = _conv1d_reflect(vol, k, ax, slab)
     return vol
 
 
-def _st_kernel(vol, sigma, rho):
-    image = _smooth(vol, sigma) if sigma > 0 else vol
+def _st_kernel(vol, sigma, rho, slab=None):
+    image = _smooth(vol, sigma, slab) if sigma > 0 else vol
 
-    gx = _scharr_grad(image, 0)
-    gy = _scharr_grad(image, 1)
-    gz = _scharr_grad(image, 2)
+    gx = _scharr_grad(image, 0, slab)
+    gy = _scharr_grad(image, 1, slab)
+    gz = _scharr_grad(image, 2, slab)
 
     comps = [gx * gx, gx * gy, gx * gz, gy * gy, gy * gz, gz * gz]
     if rho > 0:
-        comps = [_smooth(c, rho) for c in comps]
+        comps = [_smooth(c, rho, slab) for c in comps]
 
     evals, evecs = eigh3(torch.stack(comps, dim=-1))
     # The reference returns Julia `eigen` ordering: ascending eigenvalues
@@ -109,6 +138,37 @@ def st_eigen(sxx, sxy, sxz, syy, syz, szz, device=None):
     return evecs.flip(-1).cpu().numpy(), evals.flip(-1).cpu().numpy()
 
 
+def _halo(sigma: float, rho: float) -> int:
+    """How far the filters reach along an axis: the pre-smooth radius,
+    Scharr's 1 and the post-smooth radius."""
+    def radius(s):
+        return (len(_gaussian_kernel1d(s)) - 1) // 2 if s > 0 else 0
+    return radius(sigma) + 1 + radius(rho)
+
+
+def _st_sharded(v, sigma, rho, mesh):
+    """`_st_kernel` over slabs of `v` on the mesh's data devices, joined on
+    the first one (fibers_tpu/models/structens.py:145-155)."""
+    nd = mesh.ndata
+    axis = next((i for i in range(3) if v.shape[i] % nd == 0), None)
+    d0 = mesh.data_devices[0]
+    if axis is None:
+        return _st_kernel(torch.from_numpy(v).to(d0), sigma, rho)
+    n, h = v.shape[axis], _halo(sigma, rho)
+    per = n // nd
+    parts = []
+    for i, d in enumerate(mesh.data_devices):
+        a, b = i * per, (i + 1) * per
+        lo, hi = max(a - h, 0), min(b + h, n)
+        slab = np.ascontiguousarray(np.take(v, np.arange(lo, hi), axis))
+        ev, el = _st_kernel(torch.from_numpy(slab).to(d), sigma, rho,
+                            (axis, lo, hi, n))
+        parts.append((ev.narrow(axis, a - lo, per), el.narrow(axis, a - lo,
+                                                              per)))
+    return tuple(torch.cat([_move(p[k], d0) for p in parts], dim=axis)
+                 for k in range(2))
+
+
 def st_recon(vol: np.ndarray, sigma: float, rho: float, lazy: bool = False,
              mesh=None, device=None):
     """Structure-tensor reconstruction: Gaussian pre-smooth (sigma), Scharr
@@ -117,18 +177,24 @@ def st_recon(vol: np.ndarray, sigma: float, rho: float, lazy: bool = False,
 
     Returns (eigvec [X,Y,Z,3,3], eigval [X,Y,Z,3]), eigenvalues ascending,
     as numpy; with `lazy=True` as `LazyArray`s that stay on `device`
-    (None: the card) until host code reads them.  `mesh=` is
-    not ported yet (ROADMAP A13) and raises.
+    (None: the card) until host code reads them.
+
+    `mesh` (parallel/mesh.py): the volume is cut into equal slabs along
+    its first axis that the data-axis size divides, one per data device,
+    each filtered with its halo (module docstring); with no such axis it
+    runs unsharded on the mesh's first device, as the reference does.
+    The lazy outputs are joined on the first device.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "st_recon(mesh=): multi-device structure tensors are not ported "
-            "yet (ROADMAP A13)")
+    mesh = as_mesh(mesh)
     v = np.array(vol, np.float32)
     if v.ndim == 4:
         v = v[..., 0]
-    evecs, evals = _st_kernel(torch.from_numpy(v).to(resolve(device)),
-                              float(sigma), float(rho))
+    sigma, rho = float(sigma), float(rho)
+    if mesh is not None:
+        evecs, evals = _st_sharded(v, sigma, rho, mesh)
+    else:
+        evecs, evals = _st_kernel(torch.from_numpy(v).to(resolve(device)),
+                                  sigma, rho)
     if lazy:
         return LazyArray(evecs), LazyArray(evals)
     return evecs.cpu().numpy(), evals.cpu().numpy()

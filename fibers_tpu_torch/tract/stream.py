@@ -40,6 +40,7 @@ from ..core.handoff import DevicePeaks
 from ..core.mri import MRI
 from ..device import resolve, upload
 from ..io.trk import Tract, TrkSink
+from ..parallel.mesh import as_mesh, as_tensor, pad_to_multiple
 from ..utils.prng import prng_key, uniform
 
 __all__ = ["stream", "StreamConfig", "StreamWork", "stream_new_line",
@@ -108,7 +109,8 @@ class StreamConfig:
     # stream lines to this .trk path chunk by chunk; the returned Tract
     # then carries header + counts but not the points
     trk_sink: Optional[str] = None
-    # multi-device seeds: not ported yet
+    # shard every chunk's seeds over the mesh's "data" axis
+    # (parallel/mesh.py); the orientation field is replicated
     mesh: Optional[object] = None
 
 
@@ -153,9 +155,13 @@ def _smooth_dir(vec, vnext, smooth_coeff):
         torch.sqrt((vsm * vsm).sum(dim=1, keepdim=True)), 1e-20)
 
 
-def _propagate(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
-               cosang_thresh, smooth_coeff, len_max):
-    """Lockstep propagation of one direction for S streams.
+def _propagate_many(sets, nsteps, shape3, step_size, cosang_thresh,
+                    smooth_coeff, len_max):
+    """Lockstep propagation of one direction for the S streams of each
+    set (pos0, vec0, npts0, ovecs_flat): one set per seed shard, each on
+    its field's device.  One Python loop over the steps launches every
+    set's step in turn, so the devices of a mesh work at once and only the
+    host's launches per step grow with the shard count.
 
     Masking is baked into the orientation vectors: every vector outside
     the mask is zero, so an out-of-mask voxel has no candidate and stops
@@ -164,35 +170,40 @@ def _propagate(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
     the reference's single length budget (reference: src/stream.jl:
     648-686).
 
-    Returns (out [nsteps, S, 3] saved positions, saved [nsteps, S],
-    npts_total [S])."""
-    s = pos0.shape[0]
-    dev = pos0.device
-    outs = torch.empty((nsteps, s, 3), dtype=pos0.dtype, device=dev)
-    saved = torch.empty((nsteps, s), dtype=torch.bool, device=dev)
-    pos, vec, npts = pos0, vec0, npts0
-    active = torch.ones(s, dtype=torch.bool, device=dev)
+    Returns one (out [nsteps, S, 3] saved positions, saved [nsteps, S],
+    npts_total [S]) per set."""
+    state = []
+    for pos0, vec0, npts0, ov in sets:
+        s, dev = pos0.shape[0], pos0.device
+        state.append(dict(
+            ov=ov, pos=pos0, vec=vec0, npts=npts0,
+            active=torch.ones(s, dtype=torch.bool, device=dev),
+            outs=torch.empty((nsteps, s, 3), dtype=pos0.dtype, device=dev),
+            saved=torch.empty((nsteps, s), dtype=torch.bool, device=dev)))
     for t in range(nsteps):
-        pos_next = pos + vec * step_size
-        flat, inb = _flat_index(torch.round(pos_next).to(torch.int64), shape3)
-        vnext, okvec, _ = _pick_by_angle(vec, ovecs_flat[flat])
+        for st in state:
+            pos, vec = st["pos"], st["vec"]
+            pos_next = pos + vec * step_size
+            flat, inb = _flat_index(torch.round(pos_next).to(torch.int64),
+                                    shape3)
+            vnext, okvec, _ = _pick_by_angle(vec, st["ov"][flat])
 
-        # save the CURRENT position (pre-step), as the reference does
-        save = active & inb & okvec
-        npts = npts + save.to(npts.dtype)
-        outs[t] = pos
-        saved[t] = save
+            # save the CURRENT position (pre-step), as the reference does
+            save = st["active"] & inb & okvec
+            st["npts"] = st["npts"] + save.to(st["npts"].dtype)
+            st["outs"][t] = pos
+            st["saved"][t] = save
 
-        # post-save stopping rules
-        cosang = (vec * vnext).sum(dim=1)
-        cont = save & (cosang >= cosang_thresh) & (npts <= len_max)
+            # post-save stopping rules
+            cosang = (vec * vnext).sum(dim=1)
+            cont = save & (cosang >= cosang_thresh) & (st["npts"] <= len_max)
 
-        # EMA smoothing, then advance
-        pos = torch.where(cont[:, None], pos_next, pos)
-        vec = torch.where(cont[:, None], _smooth_dir(vec, vnext,
-                                                     smooth_coeff), vec)
-        active = cont
-    return outs, saved, npts
+            # EMA smoothing, then advance
+            st["pos"] = torch.where(cont[:, None], pos_next, pos)
+            st["vec"] = torch.where(
+                cont[:, None], _smooth_dir(vec, vnext, smooth_coeff), vec)
+            st["active"] = cont
+    return [(st["outs"], st["saved"], st["npts"]) for st in state]
 
 
 def _seed_state(seeds, subs, ovecs_flat, shape3):
@@ -211,15 +222,29 @@ def propagate_chunk(seeds, subs, ovecs_flat, shape3, nsteps, step_size,
     seeds, subs: [S, 3] host arrays (seed voxel, sub-voxel offset).
     Returns (fwd_out, fwd_n, bwd_out, bwd_n) on the device of
     `ovecs_flat`: [nsteps, S, 3] saved points and [S] int32 counts."""
-    dev = ovecs_flat.device
-    pos0, v0 = _seed_state(seeds, subs, ovecs_flat, shape3)
-    zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
-    args = (ovecs_flat, nsteps, shape3, step_size, cosang_thresh,
-            smooth_coeff, len_max)
-    fwd_out, fwd_saved, npts_f = _propagate(pos0, v0, zero, *args)
-    bwd_out, bwd_saved, _ = _propagate(pos0, -v0, npts_f, *args)
-    return (fwd_out, fwd_saved.sum(dim=0, dtype=torch.int32),
-            bwd_out, bwd_saved.sum(dim=0, dtype=torch.int32))
+    return propagate_shards([(seeds, subs, ovecs_flat)], shape3, nsteps,
+                            step_size, cosang_thresh, smooth_coeff,
+                            len_max)[0]
+
+
+def propagate_shards(parts, shape3, nsteps, step_size, cosang_thresh,
+                     smooth_coeff, len_max):
+    """`propagate_chunk` for the seed shards `parts` [(seeds, subs,
+    ovecs_flat)], each on its field's device, their steps interleaved
+    (`_propagate_many`).  Returns one (fwd_out, fwd_n, bwd_out, bwd_n)
+    per shard."""
+    starts = [_seed_state(sd, sb, ov, shape3) for sd, sb, ov in parts]
+    args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff, len_max)
+    fwd = _propagate_many(
+        [(p0, v0, torch.zeros(p0.shape[0], dtype=torch.int32,
+                               device=p0.device), ov)
+         for (p0, v0), (_, _, ov) in zip(starts, parts)], *args)
+    bwd = _propagate_many(
+        [(p0, -v0, nf, ov) for (p0, v0), (_, _, nf), (_, _, ov)
+         in zip(starts, fwd, parts)], *args)
+    return [(fo, fs.sum(dim=0, dtype=torch.int32),
+             bo, bs.sum(dim=0, dtype=torch.int32))
+            for (fo, fs, _), (bo, bs, _) in zip(fwd, bwd)]
 
 
 # ------------------------------------------------------------------ #
@@ -287,35 +312,40 @@ def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False):
 
     launch(lo) -> (fwd_out, fwd_n, bwd_out, bwd_n) or, with has_scalars,
     (..., fwd_scal, bwd_scal): [nsteps, S] int8 per-point flags that go
-    with the points as the Tract's one scalar."""
+    with the points as the Tract's one scalar.  A sharded launch returns
+    a list of such tuples, one per seed shard in seed order; each is
+    compacted on its own device."""
     if has_scalars:
         tr.n_scalars = 1          # before the sink writes the header
     sink = _TrkStream(trk_sink, tr) if trk_sink is not None else None
     counts, parts, sparts = [], [], []
     with sink if sink is not None else contextlib.nullcontext():
         for lo in starts:
-            fwd_out, fwd_n_d, bwd_out, bwd_n_d, *scal = launch(lo)
-            fwd_n, bwd_n = _to_host(torch.stack([fwd_n_d, bwd_n_d]))
-            tot = fwd_n.astype(np.int64) + bwd_n
-            keep = tot >= len_min
-            if not keep.any():
-                continue
-            npts = tot[keep]
-            off = np.zeros(len(tot), np.int64)
-            off[keep] = np.concatenate([[0], np.cumsum(npts)[:-1]])
-            dev = fwd_out.device
-            lines = (fwd_n_d, bwd_n_d, upload(keep, dev), upload(off, dev),
-                     int(npts.sum()))
-            pts = _to_host(_compact(fwd_out, bwd_out, *lines))
-            sc = _to_host(_compact(*scal, *lines)).astype(np.float32) \
-                if has_scalars else None
-            npts = npts.astype(np.int32)
-            counts.append(npts)
-            if sink is not None:
-                sink.append(pts, npts, None if sc is None else sc[:, None])
-            else:
-                parts.append(pts)
-                sparts.append(sc)
+            out = launch(lo)
+            for fwd_out, fwd_n_d, bwd_out, bwd_n_d, *scal in (
+                    out if isinstance(out, list) else [out]):
+                fwd_n, bwd_n = _to_host(torch.stack([fwd_n_d, bwd_n_d]))
+                tot = fwd_n.astype(np.int64) + bwd_n
+                keep = tot >= len_min
+                if not keep.any():
+                    continue
+                npts = tot[keep]
+                off = np.zeros(len(tot), np.int64)
+                off[keep] = np.concatenate([[0], np.cumsum(npts)[:-1]])
+                dev = fwd_out.device
+                lines = (fwd_n_d, bwd_n_d, upload(keep, dev),
+                         upload(off, dev), int(npts.sum()))
+                pts = _to_host(_compact(fwd_out, bwd_out, *lines))
+                sc = _to_host(_compact(*scal, *lines)).astype(np.float32) \
+                    if has_scalars else None
+                npts = npts.astype(np.int32)
+                counts.append(npts)
+                if sink is not None:
+                    sink.append(pts, npts,
+                                None if sc is None else sc[:, None])
+                else:
+                    parts.append(pts)
+                    sparts.append(sc)
     npts = np.concatenate(counts) if counts else np.zeros(0, np.int32)
     if sink is not None:
         tr.npts = npts
@@ -432,7 +462,9 @@ class StreamWork:
 
     `ovec` is a `DevicePeaks` (the field is built where the peaks live)
     or host orientation MRIs (the field is built on the host and uploaded
-    to `device`, None: the card)."""
+    to `device`, None: the card, or to a mesh's first device).  With
+    `cfg.mesh` the field is copied to each of the mesh's devices:
+    `fields` maps each device to its copy."""
 
     def __init__(self, ovec, *, f=None, fa=None, mask=None,
                  cfg: Optional[StreamConfig] = None, device=None, **kwargs):
@@ -441,6 +473,7 @@ class StreamWork:
             if not hasattr(cfg, k):
                 raise TypeError(f"Unknown stream option {k}")
             setattr(cfg, k, v)
+        cfg.mesh = as_mesh(cfg.mesh)
         self.cfg = cfg
 
         self.device_peaks = ovec if isinstance(ovec, DevicePeaks) else None
@@ -463,7 +496,8 @@ class StreamWork:
                 [f] if isinstance(f, MRI) else list(f))
             self.shape3 = tuple(self.ovecs[0].vol.shape[:3])
             volres = self.ovecs[0].volres
-            self.device = resolve(device)
+            self.device = resolve(device) if cfg.mesh is None else \
+                cfg.mesh.data_devices[0]
         nx, ny, nz = self.shape3
 
         # microscopy regime switches defaults (reference:
@@ -501,7 +535,7 @@ class StreamWork:
         if self.device_peaks is not None and cfg.f_thresh > 0:
             pk = self.device_peaks
             _warn_range("f", cfg.f_thresh, *_quantiles(
-                pk.amp[:len(pk.idx), 0], (1e-5, 0.9)))
+                as_tensor(pk.amp[:len(pk.idx), 0]), (1e-5, 0.9)))
         elif self.fs is not None:
             f0 = self.fs[0].vol if self.fs[0].vol.ndim == 3 else \
                 self.fs[0].vol[..., 0]
@@ -516,7 +550,8 @@ class StreamWork:
             self.nvec = pk.nvec
             self.ovec_arr = None
             self.ovec_flat = _build_ovec_device(
-                pk.vecs, pk.amp, torch.from_numpy(
+                as_tensor(pk.vecs, dev), as_tensor(pk.amp, dev),
+                torch.from_numpy(
                     np.asarray(pk.idx, np.int64)).to(dev),
                 torch.from_numpy(mask_array.reshape(-1)).to(dev),
                 float(cfg.f_thresh), int(np.prod(self.shape3)))
@@ -526,6 +561,11 @@ class StreamWork:
                                               cfg.f_thresh, mask_array)
             self.ovec_flat = torch.from_numpy(
                 self.ovec_arr.reshape(-1, self.nvec, 3)).to(self.device)
+        self.fields = {self.ovec_flat.device: self.ovec_flat}
+        if cfg.mesh is not None:
+            for d in cfg.mesh.distinct_devices():
+                if d not in self.fields:
+                    self.fields[d] = self.ovec_flat.to(d)
 
 
 def _seed_voxels(mask_array, seed):
@@ -643,10 +683,26 @@ def _check_ported(cfg: StreamConfig):
         raise NotImplementedError(
             f"stream(wire={cfg.wire!r}): the quantized point wires are not "
             "ported yet (ROADMAP A14); use wire='f32'")
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            "stream(mesh=): multi-device tractography is not ported yet "
-            "(ROADMAP A13)")
+
+
+def _launch_sharded(seeds, subs, mesh, fields, args):
+    """One chunk's seeds split over the mesh's data axis (this process's
+    shards), padded to a multiple of it with out-of-volume seeds (-10),
+    as fibers_tpu/tract/stream.py:1157-1164 does; propagated with the
+    shards' steps interleaved.  The padding seeds are cut from the
+    results, so only real seeds reach `_drive`, in seed order."""
+    m = len(seeds)
+    per = pad_to_multiple(m, mesh.ndata) // mesh.ndata
+    pad = per * mesh.ndata - m
+    seeds = np.concatenate([seeds, np.full((pad, 3), -10.0, np.float32)])
+    subs = np.concatenate([subs, np.zeros((pad, 3), np.float32)])
+    shards = [(i, min(per, m - i * per)) for i in range(mesh.ndata)
+              if mesh.is_local(i) and i * per < m]
+    outs = propagate_shards(
+        [(seeds[i * per:(i + 1) * per], subs[i * per:(i + 1) * per],
+          fields[mesh.data_devices[i]]) for i, _ in shards], *args)
+    return [(fo[:, :r], fn[:r], bo[:, :r], bn[:r])
+            for (_, r), (fo, fn, bo, bn) in zip(shards, outs)]
 
 
 def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
@@ -665,10 +721,14 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
 
     Points are exact float32 (`wire="auto"`/"f32", or `exact_points`).
     `device` places a host orientation field (None: the card);
-    `DevicePeaks` stay where they are.  `lcms=` runs the probabilistic LCM
-    mode and a voxel size <= 0.05 mm the microscopy mode (tract/modes.py),
-    both from host volumes only.  The quantized point wires and `mesh=`
-    are not ported yet and raise.
+    `DevicePeaks` stay where they are.  `mesh=` (parallel/mesh.py) shards
+    each chunk's seeds over the mesh's "data" axis, padded to a multiple
+    of it with out-of-volume seeds, against a copy of the field on every
+    device; the lines come out in seed order, as without a mesh.
+    `lcms=` runs the probabilistic LCM mode and a voxel size <= 0.05 mm
+    the microscopy mode (tract/modes.py), both from host volumes only and
+    unsharded (on a mesh's first device), as in the reference.  The
+    quantized point wires are not ported yet and raise.
     """
     del odf
     work = StreamWork(ovec, f=f, fa=fa, mask=mask, cfg=cfg, device=device,
@@ -701,12 +761,16 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     nsteps = int(work.len_max) + 2
     cosang_thresh = float(np.cos(np.radians(work.ang_thresh)))
 
+    args = (work.shape3, nsteps, float(work.step_size), cosang_thresh,
+            float(work.smooth_coeff), int(work.len_max))
+
     def launch(lo):
         hi = min(lo + cfg.chunk, len(seeds_all))
-        return propagate_chunk(
-            seeds_all[lo:hi], subs_all[lo:hi], work.ovec_flat, work.shape3,
-            nsteps, float(work.step_size), cosang_thresh,
-            float(work.smooth_coeff), int(work.len_max))
+        if cfg.mesh is None:
+            return propagate_chunk(seeds_all[lo:hi], subs_all[lo:hi],
+                                   work.ovec_flat, *args)
+        return _launch_sharded(seeds_all[lo:hi], subs_all[lo:hi],
+                               cfg.mesh, work.fields, args)
 
     starts = list(range(0, len(seeds_all), cfg.chunk))
     return _drive(launch, starts, cfg.len_min, tr, cfg.trk_sink)

@@ -197,14 +197,31 @@ def test_pipeline(data):
 
 @pytest.mark.parametrize("cmd", ["pipeline", "dti", "structens"])
 def test_mesh_raises_naming_a13(data, cmd):
-    """tests/test_cli.py's sharded pipeline: multi-device runs are not
-    ported, so `--mesh 2` raises naming ROADMAP A13."""
+    """tests/test_cli.py's sharded pipeline: `--mesh 2` (two CPU shards
+    here) now runs, and writes what the JAX CLI writes with `--mesh 2`
+    (tolerances of the module docstring)."""
     tmp, dp, mp = data
-    argv = {"pipeline": ["pipeline", dp, mp, str(tmp / "p8")],
-            "dti": ["dti", dp, mp, str(tmp / "d8")],
-            "structens": ["structens", mp, str(tmp / "s8")]}[cmd]
-    with pytest.raises(NotImplementedError, match="A13"):
-        main(argv + ["--mesh", "2"])
+    argv = {"pipeline": lambda t: ["pipeline", dp, mp, str(tmp / f"{t}p8")],
+            "dti": lambda t: ["dti", dp, mp, str(tmp / f"{t}d8")],
+            "structens": lambda t: ["structens", mp, str(tmp / f"{t}s8")]}[cmd]
+    assert main(argv("t") + ["--mesh", "2"]) == 0
+    assert jmain(argv("j") + ["--mesh", "2"]) == 0
+    if cmd == "pipeline":
+        for f in ("dti_fa", "gqi_qa1"):
+            np.testing.assert_allclose(
+                _vol(str(tmp / "tp8" / f"{f}.nii.gz")),
+                _vol(str(tmp / "jp8" / f"{f}.nii.gz")), atol=1e-4, rtol=0)
+        _compare_tracts(ft.trk_read(str(tmp / "jp8" / "tracts.trk")),
+                        ft.trk_read(str(tmp / "tp8" / "tracts.trk")))
+    elif cmd == "dti":
+        np.testing.assert_allclose(_vol(str(tmp / "td8_fa.nii.gz")),
+                                   _vol(str(tmp / "jd8_fa.nii.gz")),
+                                   atol=1e-4, rtol=0)
+    else:
+        got = _vol(str(tmp / "ts8_eigval.nii.gz"))
+        want = _vol(str(tmp / "js8_eigval.nii.gz"))
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
 
 
 def test_unknown_sphere_and_struct_rejected(data):

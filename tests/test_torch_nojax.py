@@ -3,7 +3,8 @@
 The test process has jax loaded already (conftest.py), so the check runs
 in a fresh interpreter: import the port, run DTI, GQI, RUMBA-SD, DSI, the
 structure tensor, the deterministic, LCM and microscopy tractography, the
-volume and .trk writers and the CLI on tiny phantoms, and look at
+sharded GQI, stream and RUMBA-SD on a two-shard CPU mesh, the volume and
+.trk writers and the CLI on tiny phantoms, and look at
 sys.modules (tests/test_torch_selfcontained.py reads the same run for
 `fibers_tpu`).
 """
@@ -43,6 +44,15 @@ ovecs, lcm, lmask = make_lcm_field((12, 12))
 assert tt.stream(ovecs, mask=lmask, lcms=lcm, device="cpu").n_scalars == 1
 mov, mmask = make_micro_field((12, 12, 2))
 assert tt.stream(mov, mask=mmask, nsub=0, device="cpu").n_count > 0
+from fibers_tpu_torch.parallel.mesh import make_mesh
+from fibers_tpu_torch.parallel import distributed, pipeline
+mesh = make_mesh(2, device="cpu")
+bm = tt.prepare_batch(dwi, mask, mesh=mesh)
+gm = tt.gqi_rec(dwi, mask, tt.sphere_362, batch=bm)
+assert tt.stream(tt.peaks_to_ovecs(gm, device=True), mask=mask,
+                 mesh=mesh).n_count > 0
+assert np.isfinite(tt.rumba_rec(dwi, mask, tt.sphere_362, niter=2,
+                                batch=bm).gfa.vol).all()
 from fibers_tpu_torch.__main__ import main
 import os, tempfile
 with tempfile.TemporaryDirectory() as d:

@@ -77,8 +77,10 @@ def test_prepare_batch_quantized_wires_raise(wire):
 
 
 def test_prepare_batch_rejects_mesh_and_unknown_wire():
+    """A `mesh=` that is not a port `Mesh` (e.g. a jax one) and an
+    unknown wire are refused."""
     dwi, mask, _, _ = make_phantom(shape=(3, 3, 3), ndir=12)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="Mesh"):
         tt.prepare_batch(dwi, mask, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="wire"):
         tt.prepare_batch(dwi, mask, wire="f16", device="cpu")
@@ -153,8 +155,8 @@ def test_every_reference_name_resolves(name):
 
 
 def _mesh_cases():
-    """One call per entry point that takes `mesh=` and was ported
-    without it."""
+    """One call per entry point that takes `mesh=`, each given an object
+    that is not a port `Mesh`; the CLI with `--mesh 2` on the CPU."""
     from test_dsi import make_dsi_phantom
     from test_torch_modes import _lcm_corridor
 
@@ -177,8 +179,8 @@ def _mesh_cases():
         dp, mp = str(tmp_path / "d.nii.gz"), str(tmp_path / "m.nii.gz")
         tt.mri_write(as_port(dwi), dp)
         tt.mri_write(as_port(mask), mp)
-        main(["--device", "cpu", "pipeline", dp, mp, str(tmp_path / "out"),
-              "--mesh", "2"])
+        return main(["--device", "cpu", "pipeline", dp, mp,
+                     str(tmp_path / "out"), "--mesh", "2"])
 
     return {"st_recon": st_recon, "dsi_rec": dsi_rec,
             "stream_lcm": stream_lcm, "cli": cli}
@@ -187,9 +189,16 @@ def _mesh_cases():
 @pytest.mark.parametrize("entry", ["st_recon", "dsi_rec", "stream_lcm",
                                    "cli"])
 def test_mesh_raises_naming_a13(entry, tmp_path):
+    """`mesh=` is ported (ROADMAP A13 is done): an entry point refuses an
+    object that is not a port `Mesh` with a TypeError naming it, and the
+    CLI's `--mesh 2` runs on two CPU shards."""
     fn = _mesh_cases()[entry]
-    with pytest.raises(NotImplementedError, match="A13"):
-        fn(tmp_path) if entry == "cli" else fn()
+    if entry == "cli":
+        assert fn(tmp_path) == 0
+        assert os.path.isfile(str(tmp_path / "out" / "tracts.trk"))
+        return
+    with pytest.raises(TypeError, match="Mesh"):
+        fn()
 
 
 def test_device_resolution():

@@ -401,7 +401,7 @@ def test_rumba_rec_options():
         assert sorted(stages) == ["iterate", "post", "signal"]
     with pytest.raises(ValueError, match="signal_wire"):
         tt.rumba_rec(dwi, mask, ft.sphere_362, niter=1, signal_wire="u8")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="Mesh"):
         tt.rumba_rec(dwi, mask, ft.sphere_362, niter=1, mesh=object())
     with pytest.raises(NotImplementedError, match="pace aborts"):
         tt.rumba_rec(dwi, mask, ft.sphere_362, niter=1, abort_s_per_iter=1.0)

@@ -59,6 +59,14 @@ def test_no_import_of_the_jax_package(path):
     assert _reference_imports(path) == []
 
 
+def test_the_scan_covers_the_parallel_package():
+    """`parallel/` (the mesh, the process group, the fused step) is among
+    the scanned sources."""
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {f"fibers_tpu_torch/parallel/{m}.py"
+            for m in ("mesh", "distributed", "pipeline")} <= names
+
+
 def test_the_scan_sees_an_import_of_the_jax_package(tmp_path):
     """The scan is not blind: each spelling of an import is found."""
     src = tmp_path / "m.py"

@@ -16,6 +16,7 @@ import torch
 import fibers_tpu as ft
 import fibers_tpu_torch as tt
 from fibers_tpu_torch.core.handoff import DevicePeaks
+from fibers_tpu_torch.parallel.mesh import make_mesh
 from fibers_tpu_torch.utils import prng
 
 from phantom import make_phantom
@@ -206,7 +207,8 @@ def test_stream_empty_seed_set(tmp_path):
     (dict(wire="i8"), NotImplementedError),
     (dict(wire="i6"), NotImplementedError),
     (dict(wire="i4"), ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    # the quantized wires raise on the sharded path too
+    (dict(wire="i6", mesh=make_mesh(2, device="cpu")), NotImplementedError),
     (dict(bogus=1), TypeError),
 ])
 def test_stream_unported_options_raise(kw, exc):
