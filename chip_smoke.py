@@ -19,7 +19,8 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   their plain versions, bit for bit, at RUMBA's shapes, the TV
   experiment's and ragged ones, after the self-check of their branch-free
   sqrt, 1/x and a/b against the IEEE intrinsics; config 4 (600
-  iterations at full width) chained into ~1M streams and a .trk; a
+  iterations at full width, its signal on the u12 wire) chained into ~1M
+  streams and a .trk; a
   tv_bf16 run; the card's slice against the CPU's on the small config-4
   phantom.
 - DSI (config 3 at full width, chained into ~1M streams), the structure
@@ -27,6 +28,14 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   and the CLI (`python -m fibers_tpu_torch dsi`/`structens`), with their
   card-against-CPU checks on small inputs.  These paths run none of the
   hand-written kernels; their launch counts must stay 0.
+- Wires (`[wire]` lines): the headline pipeline as bench.py:240-261
+  writes it (the batch on the u12 upload wire, the points on the i6
+  point wire) against the f32 run, and its i6 stream against f32 points
+  of the same peaks, with each stage's time and the launches per
+  propagation step of both point wires; the 600-iteration RUMBA fit's
+  default u12 signal rows against the exact host signal, its signal
+  stage beside an f32 one, and its chain streamed on the i6 wire
+  against f32 points.
 - Mesh (`[mesh]` lines): on two cards when the host has them, else on
   two shards of card 0, the headline pipeline (its stream's chunks under
   the sync debug mode), RUMBA config 4 (20 iterations), DSI config 3,
@@ -320,10 +329,13 @@ def sync_all(mesh=None):
         torch.cuda.synchronize(d)
 
 
-def pipeline(dwi, mask, seed, device, trk, mesh=None):
+def pipeline(dwi, mask, seed, device, trk, mesh=None, wire="f32",
+             point_wire="f32"):
     """The bench.py:233-275 sequence on the port, sharded over `mesh`
-    when given; returns results and per-stage wall times (each stage ends
-    in a synchronize)."""
+    when given, with the batch's upload wire `wire` and the stream's
+    point wire `point_wire` (bench.py's own: "u12" and "i6"); returns
+    results and per-stage wall times (each stage ends in a
+    synchronize)."""
     import torch
     import fibers_tpu_torch as tt
 
@@ -333,7 +345,7 @@ def pipeline(dwi, mask, seed, device, trk, mesh=None):
 
     t = {}
     t0 = time.time()
-    batch = tt.prepare_batch(dwi, mask, wire="f32", device=device,
+    batch = tt.prepare_batch(dwi, mask, wire=wire, device=device,
                              mesh=mesh)
     sync()
     t["batch"] = time.time() - t0
@@ -348,7 +360,7 @@ def pipeline(dwi, mask, seed, device, trk, mesh=None):
     t1 = time.time()
     pk1 = tt.peaks_to_ovecs(gqi, device=True).first(1)
     tract = tt.stream(pk1, fa=dti.fa, mask=mask, seed=seed, nsub=3,
-                      f_thresh=0.0, wire="f32", trk_sink=trk, mesh=mesh)
+                      f_thresh=0.0, wire=point_wire, trk_sink=trk, mesh=mesh)
     t["stream+write"] = time.time() - t1
     t["total"] = time.time() - t0
     return dti, gqi, tract, t
@@ -548,6 +560,175 @@ def phase_mesh_main(dwi, mask, seed, mesh, ref, back_ref, t_ref, d):
     return counts["gqi_fused"]
 
 
+# the i6 point wire's bound at bench.py's 0.5-voxel step: 2 * step / 31
+I6_BOUND = 2 * 0.5 / 31
+
+
+class sink_seconds:
+    """Host seconds spent in the .trk sink's appends while the block runs:
+    the float32 records' packing (`TrkSink.append`) or the delta wires'
+    fused native decode into records (`append_deltas`, `append_deltas6`),
+    file writes included.  `fused` counts the fused calls."""
+
+    NAMES = ("append", "append_deltas", "append_deltas6")
+
+    def __enter__(self):
+        from fibers_tpu_torch.io.trk import TrkSink
+        self.seconds, self.fused = 0.0, 0
+        self._saved = {n: getattr(TrkSink, n) for n in self.NAMES}
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    self.fused += name != "append"
+            return wrapper
+
+        for name, fn in self._saved.items():
+            setattr(TrkSink, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from fibers_tpu_torch.io.trk import TrkSink
+        for name, fn in self._saved.items():
+            setattr(TrkSink, name, fn)
+
+
+def step_launches(work, seeds):
+    """Device launches and copies per propagation step of one chunk of
+    `seeds` voxels, each point wire: the profiler's CUDA events of
+    `propagate_chunk` at 32 steps less those at 16, over the 2 x 16 steps
+    of the two directions."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fibers_tpu_torch.tract.stream import propagate_chunk
+
+    subs = np.zeros_like(seeds)
+    cos45 = float(np.cos(np.radians(45.0)))
+    out = {}
+    for emit, qscale, dmax in (("points", 254.0, 127),
+                               ("deltas", 31 / 0.5, 31)):
+        events = []
+        for nsteps in (16, 32):
+            propagate_chunk(seeds, subs, work.ovec_flat, work.shape3,
+                            nsteps, 0.5, cos45, 0.2, 1000, emit, qscale,
+                            dmax)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                propagate_chunk(seeds, subs, work.ovec_flat, work.shape3,
+                                nsteps, 0.5, cos45, 0.2, 1000, emit, qscale,
+                                dmax)
+                torch.cuda.synchronize()
+            events.append(sum(e.count for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA))
+        out["f32" if emit == "points" else "i6"] = \
+            (events[1] - events[0]) / 32
+    return out
+
+
+def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
+    """[wire] The headline pipeline as bench.py:240-261 writes it: the
+    batch on the u12 wire, the stream on the i6 wire into a .trk, its
+    step loops under `launches_must_not_sync`.  Held against run 2 of the
+    f32 pipeline of the same call (`ref`, its stage times `t_ref`, its
+    sink's host seconds `sink_ref`): the GQI ODF within rtol 1e-3 / atol
+    1e-5 (tests/test_transfer.py:98-116), FA within 1e-3 on 90% of the
+    mask (on this phantom's near-zero DWI samples along the fibres a
+    grid step of max/4095 moves the log-linear fit: the JAX package's
+    u12 batch is the same bit for bit, tests/test_torch_wire.py), the
+    stream count within 0.5% (a u12 fit may move a peak or an FA
+    threshold); and its i6 stream against an f32 stream of the same
+    peaks: equal stream count and npts, .trk points within 2 * step / 31.
+    gqi_fused launches once.  Returns its launches."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.tract.stream import StreamWork
+
+    dti_r, gqi_r, tract_r = ref
+    trk = os.path.join(d, "wire.trk")
+    # warm run: the decode's and the quantizer's first launches
+    pipeline(dwi, mask, seed, "cuda", trk, wire="u12", point_wire="i6")
+    reset_counts()
+    with launches_must_not_sync() as guard, sink_seconds() as sk:
+        dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk,
+                                      wire="u12", point_wire="i6")
+    counts = read_counts()
+    check(counts["gqi_fused"] == 1 and sum(counts.values()) == 1,
+          f"the u12/i6 pipeline launched {counts}, not gqi_fused once")
+    check(guard.made >= 1, "the i6 stream ran no guarded launch")
+    check(sk.fused >= 1, "the i6 stream did not take the fused .trk decode")
+
+    m = mask.vol > 0
+    fa, fa_r = dti.fa.vol, dti_r.fa.vol
+    fin = m & np.isfinite(fa) & np.isfinite(fa_r)
+    dfa_all = np.abs(fa - fa_r)[fin]
+    dfa, (dfa50, dfa90, dfa99) = float(dfa_all.max()), np.percentile(
+        dfa_all, [50, 90, 99])
+    n = int(m.sum())
+    odf, odf_r = device_values(gqi.odf)[:n], device_values(gqi_r.odf)[:n]
+    dodf = float(((odf - odf_r).abs() / odf_r.abs().clamp_min(1e-5)).max())
+    torch.testing.assert_close(odf, odf_r, rtol=1e-3, atol=1e-5)
+    del odf, odf_r
+
+    # the f32 stream of the same peaks and FA
+    trk_f = os.path.join(d, "wire_f32.trk")
+    pk1 = tt.peaks_to_ovecs(gqi, device=True).first(1)
+    t1 = time.time()
+    with sink_seconds() as sk_f:
+        tract_f = tt.stream(pk1, fa=dti.fa, mask=mask, seed=seed, nsub=3,
+                            f_thresh=0.0, wire="f32", trk_sink=trk_f)
+    t_f = time.time() - t1
+    back, back_f = tt.trk_read(trk), tt.trk_read(trk_f)
+    same_n = np.array_equal(np.asarray(back.npts), np.asarray(back_f.npts))
+    dpts = float(np.abs(back.packed_xyz - back_f.packed_xyz).max()) \
+        if same_n else float("inf")
+    del back, back_f
+
+    work = StreamWork(pk1, fa=dti.fa, mask=mask, nsub=3, f_thresh=0.0)
+    vox = np.argwhere(work.mask_array)
+    per_step = step_launches(work, vox[::max(1, len(vox) // 131_072)]
+                             [:131_072].astype(np.float32))
+
+    log("[wire] pipeline u12 + i6 (bench.py:240-261): " + ", ".join(
+        f"{k}={v:.3f} s" for k, v in t.items()) + "; f32 run 2: "
+        + ", ".join(f"{k}={v:.3f} s" for k, v in t_ref.items()))
+    log(f"[wire] batch u12 {t['batch']:.3f} s against f32 "
+        f"{t_ref['batch']:.3f} s; stream+write i6 {t['stream+write']:.3f} s "
+        f"against f32 {t_ref['stream+write']:.3f} s (run 2) and "
+        f"{t_f:.3f} s (the same peaks); .trk sink host time (i6: fused "
+        f"decode into records, {sk.fused} calls; f32: record packing) i6 "
+        f"{sk.seconds:.3f} s against f32 {sink_ref:.3f} s (run 2) and "
+        f"{sk_f.seconds:.3f} s (the same peaks)")
+    log(f"[wire] device launches and copies per propagation step of a "
+        f"{min(len(vox), 131_072)}-seed chunk: f32 {per_step['f32']:.2f}, "
+        f"i6 {per_step['i6']:.2f}")
+    log(f"[wire] u12 against f32: |dFA| median {dfa50:.3g}, 90th "
+        f"percentile {dfa90:.3g}, 99th {dfa99:.3g}, max {dfa:.3g} "
+        f"({100 * float((dfa_all > 1e-3).mean()):.2f}% of voxels over "
+        f"1e-3); max ODF relative difference {dodf:.3g}; streams "
+        f"{tract.n_count} (f32 run 2: {tract_r.n_count}); i6 against f32 on the same peaks: streams "
+        f"{tract.n_count} / {tract_f.n_count}, npts "
+        f"{'equal' if same_n else 'differ'}, max|dpts| in the .trk "
+        f"{dpts:.4g} (bound {I6_BOUND:.4g}); launches {counts}; "
+        f"{guard.made} stream chunk launches under "
+        "set_sync_debug_mode('error')")
+    check(dfa90 <= 1e-3, f"u12 FA differs by over 1e-3 on more than 10% "
+          f"of the mask (90th percentile {dfa90})")
+    check(abs(tract.n_count - tract_r.n_count) <= 0.005 * tract_r.n_count,
+          f"u12/i6 streams {tract.n_count} against f32 {tract_r.n_count}")
+    check(tract.n_count == tract_f.n_count and same_n,
+          "the i6 stream's line lengths differ from the f32 stream's")
+    check(dpts <= I6_BOUND, f"i6 points differ by {dpts} > {I6_BOUND}")
+    return counts["gqi_fused"]
+
+
 def phase_main(mesh):
     import numpy as np
     import torch
@@ -569,11 +750,14 @@ def phase_main(mesh):
         # counted, timed and checked
         *_, t_warm = pipeline(dwi, mask, seed, "cuda", trk)
         reset_counts()
-        dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk)
+        with sink_seconds() as sk:
+            dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk)
         counts = read_counts()
         back = tt.trk_read(trk)
         mesh_launches = phase_mesh_main(dwi, mask, seed, mesh,
                                         (dti, gqi, tract), back, t, d)
+        wire_launches = phase_wire_main(dwi, mask, seed, (dti, gqi, tract),
+                                        t, sk.seconds, d)
     launches = counts["gqi_fused"]
     npts = int(np.sum(tract.npts))
     for name, tt_ in (("run 1", t_warm), ("run 2", t)):
@@ -603,7 +787,7 @@ def phase_main(mesh):
     log(f"[main] peak 1 vs true axis outside the crossing slab: median "
         f"|cos|={np.median(cos):.4f} over {int(single.sum())} voxels")
     check(np.median(cos) > 0.9, "GQI peak 1 does not follow the true axis")
-    return launches, mesh_launches
+    return launches, mesh_launches, wire_launches
 
 
 def phase_small():
@@ -869,8 +1053,9 @@ def phase_rumba(dwi, mask, ax, mesh):
     torch.cuda.reset_peak_memory_stats()
     stages = {}
     t0 = time.time()
-    rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter,
-                       timings=stages)
+    with signal_spy() as spy:            # the default signal_wire="u12"
+        rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter,
+                           timings=stages)
     t_fit = time.time() - t0
     counts = read_counts()
     peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -902,23 +1087,39 @@ def phase_rumba(dwi, mask, ax, mesh):
     check(dsum <= 1e-3, f"fODF + isotropic fractions sum off 1 by {dsum}")
     check(np.median(cos) > 0.9, "RUMBA peak 1 does not follow the true axis")
 
+    phase_wire_rumba(dwi, mask, spy, stages)
+
+    # the chain as bench_models.py:258-261 writes it (i6 points), then the
+    # f32 points of the same peaks
     seed = _seed_mask(mask, 1_000_000)
+    pk = tt.peaks_to_ovecs(rum, device=True)
     with tempfile.TemporaryDirectory() as d:
-        trk = os.path.join(d, "rumba.trk")
-        t1 = time.time()
-        pk = tt.peaks_to_ovecs(rum, device=True)
-        tract = tt.stream(pk, mask=mask, seed=seed, nsub=3, wire="f32",
-                          trk_sink=trk)
-        t_stream = time.time() - t1
-        back = tt.trk_read(trk)
+        run = {}
+        for pw in ("i6", "f32"):
+            trk = os.path.join(d, f"rumba_{pw}.trk")
+            t1 = time.time()
+            tract = tt.stream(pk, mask=mask, seed=seed, nsub=3, wire=pw,
+                              trk_sink=trk)
+            run[pw] = (tract, time.time() - t1, tt.trk_read(trk))
+    (tract, t_stream, back), (tract_f, t_f, back_f) = run["i6"], run["f32"]
     npts = int(np.sum(tract.npts))
+    same_n = np.array_equal(np.asarray(back.npts), np.asarray(back_f.npts))
+    dpts = float(np.abs(back.packed_xyz - back_f.packed_xyz).max()) \
+        if same_n else float("inf")
     log(f"[rumba] chain: {int((seed.vol > 0).sum())} seed voxels, nsub=3, "
-        f"{pk.nvec} peaks: stream+write {t_stream:.3f} s, "
+        f"{pk.nvec} peaks: stream+write i6 {t_stream:.3f} s, "
         f"{tract.n_count} streams, {npts} points")
+    log(f"[wire] RUMBA chain stream+write i6 {t_stream:.3f} s against f32 "
+        f"{t_f:.3f} s on the same peaks; streams {tract.n_count} / "
+        f"{tract_f.n_count}, npts {'equal' if same_n else 'differ'}, "
+        f"max|dpts| in the .trk {dpts:.4g} (bound {I6_BOUND:.4g})")
     check(tract.n_count > 0, "no streamlines from the RUMBA peaks")
     check(back.n_count == tract.n_count and int(np.sum(back.npts)) == npts,
           f".trk holds {back.n_count} lines, the Tract {tract.n_count}")
-    del rum, pk, tract, back
+    check(tract.n_count == tract_f.n_count and same_n,
+          "the RUMBA chain's i6 line lengths differ from the f32 ones")
+    check(dpts <= I6_BOUND, f"RUMBA chain i6 points differ by {dpts}")
+    del rum, pk, tract, back, tract_f, back_f, run
 
     # tv_bf16: the dense stencil kernel on a bf16 stack, against f32
     nb = 50
@@ -949,6 +1150,60 @@ def phase_rumba(dwi, mask, ax, mesh):
     del b16, f32, fb, ff
     counts_mesh = phase_mesh_rumba(dwi, mask, mesh, batch, nmask)
     return counts, counts_b16, counts_mesh
+
+
+class signal_spy:
+    """Keeps the signal rows that `rumba_rec` builds through its upload
+    wire (`models/rumba.py:_signal_wire`) while the block runs."""
+
+    def __enter__(self):
+        from fibers_tpu_torch.models import rumba
+        self._real, self.rows = rumba._signal_wire, None
+
+        def spy(*args, **kwargs):
+            self.rows = self._real(*args, **kwargs)
+            return self.rows
+
+        rumba._signal_wire = spy
+        return self
+
+    def __exit__(self, *exc):
+        from fibers_tpu_torch.models import rumba
+        rumba._signal_wire = self._real
+
+
+def phase_wire_rumba(dwi, mask, spy, stages):
+    """[wire] The signal rows of the 600-iteration fit, which took the
+    default u12 wire (`spy`), against the exact host signal
+    (`_signal_host`) on every 16th row: within half a grid step, 0.5 /
+    4095, plus 1e-6 for the decode's float32 rounding.  Then the signal
+    stage of a one-iteration fit with signal_wire="f32", for its time
+    beside the u12 stage's (`stages`)."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.models.rumba import _signal_host
+    from fibers_tpu_torch.ops.masked import mask_indices
+
+    check(spy.rows is not None, "the RUMBA fit did not take the u12 wire")
+    vol = np.asarray(dwi.vol)
+    bval = np.asarray(dwi.bval, np.float32)
+    idx = mask_indices(mask.vol)
+    rows = np.arange(0, len(idx), 16)
+    exact = _signal_host(vol.reshape(-1, vol.shape[3]), idx[rows],
+                         bval == bval.min())
+    got = spy.rows[torch.from_numpy(rows).to(spy.rows.device)].cpu().numpy()
+    spy.rows = None
+    dsig = float(np.abs(got - exact).max())
+    st_f = {}
+    tt.rumba_rec(dwi, mask, tt.sphere_724, niter=1, signal_wire="f32",
+                 timings=st_f)
+    log(f"[wire] RUMBA signal u12 {stages['signal']:.3f} s against f32 "
+        f"{st_f['signal']:.3f} s (a one-iteration fit); u12 rows against "
+        f"the exact signal on {len(rows)} rows: max|d|={dsig:.3g} (bound "
+        f"0.5/4095 + 1e-6 = {0.5 / 4095 + 1e-6:.4g})")
+    check(got.shape == exact.shape, "u12 signal rows of another shape")
+    check(dsig <= 0.5 / 4095 + 1e-6, f"u12 signal rows differ by {dsig}")
 
 
 def phase_mesh_rumba(dwi, mask, mesh, batch, nmask, niter=20):
@@ -1011,7 +1266,10 @@ def phase_rumba_small():
     out = {}
     for dev in ("cuda", "cpu"):
         t1 = time.time()
-        rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=30, device=dev)
+        # the same exact signal on both devices (the card's default is
+        # the u12 wire, which the CPU ignores)
+        rum = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=30, device=dev,
+                           signal_wire="f32")
         tract = tt.stream(tt.peaks_to_ovecs(rum, device=True), mask=mask,
                           seed=seed, nsub=3, wire="f32")
         out[dev] = (rum.fodf.vol, rum.gfa.vol, rum.snr_mean,
@@ -1460,8 +1718,10 @@ def main():
     mesh, kind = smoke_mesh()
     log(f"[mesh] the mesh phases run on {kind}")
     records = {"gqi_fused": phase_kernel()}
-    main_launches, mesh_main = phase_main(mesh)
+    main_launches, mesh_main, wire_main = phase_main(mesh)
     launches = {"gqi_fused": main_launches}
+    # launches of each kernel on the quantized-wire paths, by path
+    wire_launches = {"pipeline_u12_i6": {"gqi_fused": wire_main}}
     # launches of each kernel on the mesh paths, by path
     mesh_launches = {"pipeline": {"gqi_fused": mesh_main}}
     phase_small()
@@ -1473,6 +1733,8 @@ def main():
     records.update(phase_tv(mask))
     counts, counts_b16, counts_mesh = phase_rumba(dwi, mask, ax, mesh)
     mesh_launches["rumba"] = counts_mesh
+    # the 600-iteration fit builds its signal on the default u12 wire
+    wire_launches["rumba_u12"] = counts
     mean_dwi = dwi.vol.mean(axis=3)
     del dwi, mask, ax
     launches["tv_fused"] = counts["tv_fused"]
@@ -1504,7 +1766,10 @@ def main():
         rec = dict(name=name, route="cuda", source=src, replaces=site,
                    launches=launches.get(name, 0), on_path=on_path,
                    mesh_launches=sum(by_path.values()),
-                   mesh_launches_by_path=by_path, library_ms=None)
+                   mesh_launches_by_path=by_path,
+                   wire_launches_by_path={p: c.get(name, 0) for p, c
+                                          in wire_launches.items()},
+                   library_ms=None)
         rec.update(records[name])
         kernels.append(rec)
     log(json.dumps({"kernels": kernels}))

@@ -15,9 +15,12 @@ two hand-written TV kernels), DSI, the structure tensor, the LCM and
 microscopy tractography modes, the single-line and single-step stream
 API, and `python -m fibers_tpu_torch`.  Every `mesh=` shards the work
 over a device mesh (`parallel/`: `make_mesh`, several shards on one card
-or on the CPU, and `torch.distributed` across processes).  Not ported
-yet: the quantized wires (ROADMAP A14), which raise
-`NotImplementedError` naming it.
+or on the CPU, and `torch.distributed` across processes), and the
+quantized wires: the u16/u12/u8 uploads (`prepare_batch`, `dsi_rec`,
+RUMBA's `signal_wire`) and the i8/i6 point wires of `stream`.  Their
+"auto" policies stay exact (float32) on the card, where the reference
+quantizes on its accelerators; every named codec does what the
+reference's does.
 """
 
 from .core.geometry import (vox2ras_0to1, vox2ras_tkreg, vox2ras_to_orient,

@@ -7,8 +7,10 @@ positionals, options and defaults are the same, plus one top-level
 `JAX_PLATFORMS`: every fit runs on the card unless `--device cpu` asks
 for the CPU.  `--mesh N` with N > 0 shards the fits and the seeds over
 `make_mesh(N)`: N distinct cards, or N shards on the CPU with `--device
-cpu`.  The reference's default wires (`dsi --wire auto8`, `rumba --wire
-u12`) are accepted and upload exact float32.
+cpu`.  `--wire` passes through as in the reference: the quantized upload
+wires (u16/u12/u8) and point wires (i8/i6) quantize on every device,
+`auto` and `auto8` (dsi's default) upload exact float32, and rumba's
+default `u12` builds its signal on the 12-bit wire on the card.
 
     python -m fibers_tpu_torch info dwi.nii.gz
     python -m fibers_tpu_torch dti dwi.nii.gz mask.nii.gz out/dti

@@ -29,6 +29,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..core.batch import WIRES, prepare_batch
 from ..core.handoff import DevicePeaks
 from ..core.lazy import LazyVolume
 from ..core.mri import MRI
@@ -186,14 +187,8 @@ def _dsi_kernel(signals, cells, cols, hann, iq_half, wmat_aug, verts_first,
 
 
 def _check_wire(wire: str) -> None:
-    """DSI's `wire` rule (ROADMAP A14): "auto8" (the reference's
-    default), "auto" and "f32" upload exact float32; the quantized wires
-    are not ported yet."""
-    if wire in ("u8", "u12", "u16"):
-        raise NotImplementedError(
-            f"dsi_rec(wire={wire!r}): the quantized upload wires are not "
-            "ported yet (ROADMAP A14); use wire='f32'")
-    if wire not in ("auto8", "auto", "f32"):
+    """DSI's `wire` names: those of `prepare_batch`."""
+    if wire not in WIRES:
         raise ValueError(f"Unknown DSI wire {wire!r} "
                          "(expected auto8/auto/u16/u12/u8/f32)")
 
@@ -211,10 +206,12 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
 
     `batch`: an optional prepared `VoxelBatch`; chunks then slice its
     rows.  Without one, a CUDA `device` (None: the card) gets
-    the masked signals in one upload through `prepare_batch`, and on the
-    CPU the chunks slice the gathered host rows, as in the reference.
-    `wire`: "auto8" (the default), "auto" and "f32" all upload exact
-    float32; the quantized wires raise (ROADMAP A14).  `mesh`
+    the masked signals in one upload through `prepare_batch` with `wire`,
+    and on the CPU the chunks slice the gathered host rows, as in the
+    reference.  `wire`: "u8", "u12" and "u16" upload quantized rows (DSI
+    is scale-invariant: the PDF sum divides both the ODF and the PDF);
+    "auto8" (the default), "auto" and "f32" upload exact float32; on the
+    CPU, and with a `batch`, it is ignored.  `mesh`
     (parallel/mesh.py), or a `batch` sharded over one: each chunk's rows
     are sharded over the data axis (the chunk rounds to a multiple of it
     and the memory budget holds per device), each device runs its rows'
@@ -269,16 +266,16 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         mesh = batch.mesh
     if mesh is not None and mesh.size == 1:
         device, mesh = mesh.flat_devices[0], None
-    from ..core.batch import prepare_batch
     if mesh is not None:
-        if batch is None or not isinstance(batch.signals, ShardedRows):
-            batch = prepare_batch(dwi, mask, mesh=mesh, wire="f32")
         dev = mesh.data_devices[0]
+        if batch is None or not isinstance(batch.signals, ShardedRows):
+            batch = prepare_batch(dwi, mask, mesh=mesh, wire=wire
+                                  if dev.type == "cuda" else "f32")
     else:
         dev = batch.signals.device if batch is not None else \
             resolve(device)
         if batch is None and dev.type != "cpu":
-            batch = prepare_batch(dwi, mask, wire="f32", device=dev)
+            batch = prepare_batch(dwi, mask, wire=wire, device=dev)
     ndata = mesh.ndata if mesh is not None else 1
     devs = [dev] if mesh is None else mesh.distinct_devices()
 

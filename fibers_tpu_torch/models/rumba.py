@@ -30,6 +30,9 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import native
+from ..core.batch import (_quantize_pack_u12, decoder, place_rows,
+                          u12_row_bytes, wire_dtypes)
 from ..core.handoff import DevicePeaks, split_unit_amp
 from ..core.lazy import LazyVolume
 from ..core.mri import MRI
@@ -479,6 +482,43 @@ def _signal_host(flat, idx, ib0):
         [(b0_mean > 0).astype(np.float32)[:, None], dwis], axis=1)
 
 
+def _signal_wire(flat, idx, ib0, quantize, device, mesh=None):
+    """`_signal_host`'s matrix through the u12 or u16 upload wire (scale
+    1/4095 or 1/65535 of the [0, 1] signal): one fused OpenMP pass of
+    gather, b0 normalisation, clip and quantization fills a pinned
+    buffer (numpy when the native library is missing or the volume is
+    not C-contiguous float32), copied to `device` once, or over `mesh`
+    once per shard with zero pad rows, and decoded there.
+    (fibers_tpu/models/rumba.py:697-775)"""
+    nmask, ncol = len(idx), 1 + int((~ib0).sum())
+    n = nmask if mesh is None else pad_to_multiple(nmask, mesh.ndata)
+    u12 = quantize == "u12"
+    np_dt, torch_dt = wire_dtypes(quantize)
+    devs = mesh.data_devices if mesh is not None else [torch.device(device)]
+    host = torch.empty((n, u12_row_bytes(ncol) if u12 else ncol),
+                       dtype=torch_dt,
+                       pin_memory=any(d.type == "cuda" for d in devs))
+    h = host.numpy().view(np_dt)
+    h[nmask:] = 0
+    nlib = native.lib()
+    if (nlib is not None and flat.dtype == np.float32
+            and flat.flags["C_CONTIGUOUS"]):
+        take = np.ascontiguousarray(idx, np.int64)
+        ib0_i = np.ascontiguousarray(np.flatnonzero(ib0), np.int32)
+        idwi_i = np.ascontiguousarray(np.flatnonzero(~ib0), np.int32)
+        fill = nlib.rumba_signal_u12 if u12 else nlib.rumba_signal_u16
+        out = native.as_u8_ptr(h) if u12 else native.as_u16_ptr(h)
+        fill(native.as_f32_ptr(flat), native.as_i64_ptr(take), nmask,
+             flat.shape[1], native.as_i32_ptr(ib0_i), len(ib0_i),
+             native.as_i32_ptr(idwi_i), len(idwi_i), out)
+    else:
+        sig = _signal_host(flat, idx, ib0)
+        h[:nmask] = _quantize_pack_u12(sig, 1.0 / 4095.0) if u12 else \
+            (sig * np.float32(65535.0) + np.float32(0.5)).astype(np.uint16)
+    scale = 1.0 / 4095.0 if u12 else 1.0 / 65535.0
+    return place_rows(host, decoder(quantize, scale, ncol), device, mesh)
+
+
 def _lap(timings, name, t0, devs):
     """Store the wall seconds since `t0` under `name` in `timings` (after
     synchronizing the devices `devs`) when `timings` is a dict; return a
@@ -578,9 +618,10 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     `batch`: a prepared `VoxelBatch` to reuse one gather and upload; the
     b0 normalisation then runs on its device.  Without one the signal
     matrix is built on the host and uploaded to `device` (None: the card)
-    once, in exact f32.  `signal_wire` is accepted for API
-    parity: the reference's u12/u16 upload codecs are not ported (ROADMAP
-    A14), so every value uploads exact f32.
+    once, through `signal_wire`: "u12" (the default; packed 12-bit,
+    error <= 0.5/4095 on the [0, 1] signal), "u16" (<= 0.5/65535) or
+    "f32" (exact), decoded on the card.  On the CPU, and with `batch`,
+    `signal_wire` is ignored, as in the reference.
 
     `mesh` (parallel/mesh.py), or a `batch` sharded over one: the state
     is row-sharded over the mesh's data axis and the TV term reshards its
@@ -665,9 +706,14 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             signal = put_batch(signal.cpu().numpy(), mesh)
     else:
         vol = np.asarray(dwi.vol)
-        host = _signal_host(vol.reshape(-1, vol.shape[3]), idx, ib0)
-        signal = upload(host, resolve(device)) if mesh is None else \
-            put_batch(host, mesh)
+        flat = vol.reshape(-1, vol.shape[3])
+        dev0 = resolve(device) if mesh is None else mesh.data_devices[0]
+        if signal_wire != "f32" and dev0.type == "cuda":
+            signal = _signal_wire(flat, idx, ib0, signal_wire, dev0, mesh)
+        else:
+            host = _signal_host(flat, idx, ib0)
+            signal = upload(host, dev0) if mesh is None else \
+                put_batch(host, mesh)
     n_rows = signal.shape[0]
     dev = signal.device
     devs = [dev] if mesh is None else mesh.distinct_devices()

@@ -16,22 +16,28 @@ lines match the reference in distribution (the reference itself draws
 from Julia's global RNG).  Each saved point carries one scalar, the
 method-difference flag.
 
-Micro: exact float32 points only (the reference's integer point wire is
-ROADMAP A14); jumps land on integer voxels, so the lines equal the
-reference's exactly.
+Micro: jumps land on integer voxels, so the lines equal the reference's
+exactly.  Its integer point wire, deltas of one voxel (qscale = 1), is
+exact too when the seeds are voxel centres (nsub = 0) and no jump can
+leave the delta range; otherwise an explicit i8/i6 warns and the points
+go as float32, as in the reference.
+
+Both engines emit the point wire of `stream._wire_mode`: float32 points
+or error-feedback deltas (`stream._quantize_step`).
 """
 
 from __future__ import annotations
 
 import sys
+import warnings
 
 import numpy as np
 import torch
 
 from ..io.trk import Tract
 from ..utils.prng import prng_key, split, uniform
-from .stream import (_drive, _flat_index, _pick_by_angle, _seed_state,
-                     _seed_voxels, _smooth_dir)
+from .stream import (_drive, _flat_index, _pick_by_angle, _quantize_step,
+                     _seed_state, _seed_voxels, _smooth_dir)
 
 __all__ = ["stream_lcm", "stream_micro"]
 
@@ -54,26 +60,30 @@ def _take(x, i):
 
 def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
                    dxyz, edget, strdims, nsteps, shape3, step_size,
-                   smooth_coeff, len_max):
+                   smooth_coeff, len_max, emit="points", qscale=254.0,
+                   dmax=127):
     """One direction of LCM-guided propagation for S streams.
 
     Carries the previously chosen vector index (the reference continues
     along it while not entering a new voxel, src/stream.jl:399-411).
     `dxyz` [3, 4] holds the in-plane increments of the four voxel edges,
     `edget` is `EDGETYPE` on the device, `strdims` the two in-plane
-    dimensions.  Returns (out [nsteps, S, 3] positions, saved
-    [nsteps, S], flags [nsteps, S] int8 method-difference flags,
-    npts [S])."""
+    dimensions.  Returns (out [nsteps, S, 3] positions, or int8 deltas
+    with emit="deltas", saved [nsteps, S], flags [nsteps, S] int8
+    method-difference flags, npts [S], anchor [S, 3]), as
+    `stream._propagate_many`."""
     dev = pos0.device
     s = pos0.shape[0]
     jumps = dxyz.T.to(torch.float32)                     # [4, 3]
     a, b = strdims
     tiny = torch.finfo(torch.float32).tiny
 
-    outs = torch.empty((nsteps, s, 3), dtype=torch.float32, device=dev)
+    deltas = emit == "deltas"
+    outs = torch.empty((nsteps, s, 3), device=dev,
+                       dtype=torch.int8 if deltas else torch.float32)
     saved = torch.empty((nsteps, s), dtype=torch.bool, device=dev)
     flags = torch.empty((nsteps, s), dtype=torch.int8, device=dev)
-    pos, vec, npts = pos0, vec0, npts0
+    pos, vec, npts, pos_q = pos0, vec0, npts0, pos0
     ivec_prev = torch.zeros(s, dtype=torch.int64, device=dev)
     active = torch.ones(s, dtype=torch.bool, device=dev)
     for t in range(nsteps):
@@ -141,7 +151,10 @@ def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
         save = active & inb & inmask & (same_vox | ok_new) & ok_ang
 
         npts = npts + save.to(npts.dtype)
-        outs[t] = pos
+        if deltas:
+            outs[t], pos_q = _quantize_step(pos, pos_q, save, qscale, dmax)
+        else:
+            outs[t] = pos
         saved[t] = save
         # method-difference flag, in both branches (src/stream.jl:530-536)
         flags[t] = ((ivec_next != ivec_ang) & save).to(torch.int8)
@@ -153,7 +166,7 @@ def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
                                                      smooth_coeff), vec)
         ivec_prev = ivec_next
         active = cont
-    return outs, saved, flags, npts
+    return outs, saved, flags, npts, pos_q
 
 
 def _key_seed(key) -> int:
@@ -161,10 +174,10 @@ def _key_seed(key) -> int:
     return (int(key[0]) << 32) | int(key[1])
 
 
-def stream_lcm(work, seed, lcms):
+def stream_lcm(work, seed, lcms, wire):
     """Driver for probabilistic LCM tractography over a `StreamWork` of
-    host orientation volumes.  (reference: src/stream.jl:199-244,
-    380-495)"""
+    host orientation volumes, with the point wire `wire` (mode, emit,
+    qscale, dmax).  (reference: src/stream.jl:199-244, 380-495)"""
     cfg = work.cfg
     dev = work.device
     lcm_vol = np.asarray(lcms.vol, np.float32)
@@ -203,9 +216,10 @@ def stream_lcm(work, seed, lcms):
     dxyz_t = torch.from_numpy(dxyz).to(dev)
     edget = torch.from_numpy(EDGETYPE.astype(np.int64)).to(dev)
     nsteps = int(work.len_max) + 2
+    mode, emit, qscale, dmax = wire
     args = (mask_flat, work.ovec_flat, lcms_flat, dxyz_t, edget, strdims,
             nsteps, work.shape3, float(work.step_size),
-            float(work.smooth_coeff), int(work.len_max))
+            float(work.smooth_coeff), int(work.len_max), emit, qscale, dmax)
 
     starts = list(range(0, len(seeds_all), cfg.chunk))
     # per-chunk keys, fixed up front as in the reference
@@ -220,13 +234,14 @@ def stream_lcm(work, seed, lcms):
         gb = torch.Generator(device=dev).manual_seed(
             _key_seed(ckeys[2 * i + 1]))
         zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
-        fpts, fsav, fflag, nf = _propagate_lcm(gf, pos0, v0, zero, *args)
-        bpts, bsav, bflag, _ = _propagate_lcm(gb, pos0, -v0, nf, *args)
+        fpts, fsav, fflag, nf, fq = _propagate_lcm(gf, pos0, v0, zero,
+                                                   *args)
+        bpts, bsav, bflag, _, _ = _propagate_lcm(gb, pos0, -v0, nf, *args)
         return (fpts, fsav.sum(dim=0, dtype=torch.int32),
-                bpts, bsav.sum(dim=0, dtype=torch.int32), fflag, bflag)
+                bpts, bsav.sum(dim=0, dtype=torch.int32), fq, fflag, bflag)
 
     return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ovecs[0]),
-                  cfg.trk_sink, has_scalars=True)
+                  cfg.trk_sink, has_scalars=True, mode=mode, qscale=qscale)
 
 
 # ------------------------------------------------------------------ #
@@ -266,17 +281,21 @@ def _micro_search_dist(work):
 
 def _propagate_micro(pos0, vec0, npts0, mask_flat, vec_first, win_off,
                      win_dir, nsteps, shape3, step_size, cosang_thresh,
-                     search_cosang, smooth_coeff, len_max):
+                     search_cosang, smooth_coeff, len_max, emit="points",
+                     qscale=1.0, dmax=127):
     """One direction of cone-search propagation for S streams: each step
     looks at the window [S, W] around the tentative voxel and jumps to the
     in-mask, in-cone voxel whose first vector is best aligned.
     `vec_first` is the [nxyz, 3] first orientation vector per voxel.
-    Returns (out [nsteps, S, 3], saved [nsteps, S], npts [S])."""
+    Returns (out [nsteps, S, 3] positions or int8 deltas, saved
+    [nsteps, S], npts [S], anchor [S, 3]), as `stream._propagate_many`."""
     dev = pos0.device
     s = pos0.shape[0]
-    outs = torch.empty((nsteps, s, 3), dtype=torch.float32, device=dev)
+    deltas = emit == "deltas"
+    outs = torch.empty((nsteps, s, 3), device=dev,
+                       dtype=torch.int8 if deltas else torch.float32)
     saved = torch.empty((nsteps, s), dtype=torch.bool, device=dev)
-    pos, vec, npts = pos0, vec0, npts0
+    pos, vec, npts, pos_q = pos0, vec0, npts0, pos0
     active = torch.ones(s, dtype=torch.bool, device=dev)
     for t in range(nsteps):
         pos_next = pos + vec * step_size
@@ -306,7 +325,10 @@ def _propagate_micro(pos0, vec0, npts0, mask_flat, vec_first, win_off,
         vnext = torch.where((cbest > 0)[:, None], vbest, -vbest)
 
         npts = npts + save.to(npts.dtype)
-        outs[t] = pos
+        if deltas:
+            outs[t], pos_q = _quantize_step(pos, pos_q, save, qscale, dmax)
+        else:
+            outs[t] = pos
         saved[t] = save
 
         cosadv = (vec * vnext).sum(dim=1)
@@ -315,12 +337,34 @@ def _propagate_micro(pos0, vec0, npts0, mask_flat, vec_first, win_off,
         vec = torch.where(cont[:, None], _smooth_dir(vec, vnext,
                                                      smooth_coeff), vec)
         active = cont
-    return outs, saved, npts
+    return outs, saved, npts, pos_q
 
 
-def stream_micro(work, seed):
+def _micro_wire(wire, cfg, nsub, step_size):
+    """The micro mode's point wire: a quantized wire with deltas of one
+    voxel (qscale = 1), exact because cone-search jumps land on integer
+    voxels from integer seeds, when nsub == 0 and the largest jump per
+    axis (search_dist + the tentative step) stays inside the delta range;
+    otherwise float32 points, with a RuntimeWarning for an explicit
+    i8/i6.  (fibers_tpu/tract/modes.py:419-438)"""
+    mode, emit, qscale, dmax = wire
+    if mode == "f32":
+        return wire
+    if nsub == 0 and int(cfg.search_dist) + int(np.ceil(step_size)) < dmax:
+        return mode, emit, 1.0, dmax
+    if cfg.wire in ("i8", "i6"):
+        warnings.warn(
+            f"stream_micro: wire={cfg.wire!r} cannot represent this "
+            f"configuration (nsub={nsub}, search_dist={cfg.search_dist}, "
+            f"step_size={step_size}); using exact f32 points instead",
+            RuntimeWarning, stacklevel=4)
+    return "f32", "points", qscale, dmax
+
+
+def stream_micro(work, seed, wire):
     """Driver for microscopy cone-search tractography over a
-    `StreamWork` of host orientation volumes.
+    `StreamWork` of host orientation volumes, with the point wire `wire`
+    (mode, emit, qscale, dmax; `_micro_wire` adjusts it).
     (reference: src/stream.jl:547-619)"""
     cfg = work.cfg
     dev = work.device
@@ -338,12 +382,14 @@ def stream_micro(work, seed):
     mask_flat = torch.from_numpy(work.mask_array.reshape(-1)).to(dev)
     vec_first = work.ovec_flat[:, 0, :].contiguous()
     nsteps = int(work.len_max) + 2
+    mode, emit, qscale, dmax = _micro_wire(wire, cfg, work.nsub,
+                                           work.step_size)
     args = (mask_flat, vec_first,
             torch.from_numpy(win_off.astype(np.int64)).to(dev),
             torch.from_numpy(win_dir).to(dev), nsteps, work.shape3,
             float(work.step_size), float(np.cos(np.radians(work.ang_thresh))),
             float(np.cos(np.radians(cfg.search_ang))),
-            float(work.smooth_coeff), int(work.len_max))
+            float(work.smooth_coeff), int(work.len_max), emit, qscale, dmax)
 
     # the windowed gather is W times heavier; shrink the chunk
     chunk = max(256, cfg.chunk // max(1, len(win_off) // 32))
@@ -353,11 +399,11 @@ def stream_micro(work, seed):
         pos0, v0 = _seed_state(seeds_all[lo:hi], subs_all[lo:hi],
                                work.ovec_flat, work.shape3)
         zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
-        fpts, fsav, nf = _propagate_micro(pos0, v0, zero, *args)
-        bpts, bsav, _ = _propagate_micro(pos0, -v0, nf, *args)
+        fpts, fsav, nf, fq = _propagate_micro(pos0, v0, zero, *args)
+        bpts, bsav, _, _ = _propagate_micro(pos0, -v0, nf, *args)
         return (fpts, fsav.sum(dim=0, dtype=torch.int32),
-                bpts, bsav.sum(dim=0, dtype=torch.int32))
+                bpts, bsav.sum(dim=0, dtype=torch.int32), fq)
 
     starts = list(range(0, len(seeds_all), chunk))
     return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ovecs[0]),
-                  cfg.trk_sink)
+                  cfg.trk_sink, mode=mode, qscale=qscale)

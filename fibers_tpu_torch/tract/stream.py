@@ -17,8 +17,12 @@ The driver is one loop over seed chunks: propagate, compact the kept
 lines on the device into their final point order, copy them to pinned
 host memory, append them to the .trk sink (or collect them for a
 `Tract`).  The LCM and microscopy modes (tract/modes.py) run through the
-same driver.  Only the exact float32 point wire exists; the reference's
-quantized wires and its tunnel-shaped fetch pipeline are not ported.
+same driver.  The point wire is exact float32 positions, or the
+reference's error-feedback deltas ("i8", "i6"): the step loop quantizes
+each saved point's step at 1/qscale voxel while carrying the decoded
+position, so no error accumulates; the compaction packs them on the
+device and the host decodes them natively, straight into the .trk with
+a sink.  The reference's tunnel-shaped fetch pipeline is not ported.
 
 `stream_new_line` propagates one seed through the batched engine;
 `stream_new_point` and `stream_micro_new_point` are the reference's
@@ -36,11 +40,13 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from .. import native
 from ..core.handoff import DevicePeaks
 from ..core.mri import MRI
 from ..device import resolve, upload
 from ..io.trk import Tract, TrkSink
 from ..parallel.mesh import as_mesh, as_tensor, pad_to_multiple
+from ..utils.hostbuf import scratch
 from ..utils.prng import prng_key, uniform
 
 __all__ = ["stream", "StreamConfig", "StreamWork", "stream_new_line",
@@ -102,9 +108,12 @@ class StreamConfig:
     verbose: bool = False
     seed_rng: int = 0
     chunk: int = 1 << 17
-    # exact float32 points; the only point wire the port has
+    # exact float32 points whatever `wire` says
     exact_points: bool = False
-    # "auto"/"f32": exact float32 points.  "i8"/"i6" are not ported yet.
+    # point wire: "auto" and "f32" exact float32 points (the reference's
+    # "auto" picks i8 on its accelerators); "i8" int8 error-feedback
+    # deltas (error <= ~2*step_size/127 voxel, no drift); "i6" the same
+    # in 6-bit fields, 25% fewer bytes (<= ~2*step_size/31 voxel)
     wire: str = "auto"
     # stream lines to this .trk path chunk by chunk; the returned Tract
     # then carries header + counts but not the points
@@ -156,7 +165,8 @@ def _smooth_dir(vec, vnext, smooth_coeff):
 
 
 def _propagate_many(sets, nsteps, shape3, step_size, cosang_thresh,
-                    smooth_coeff, len_max):
+                    smooth_coeff, len_max, emit="points", qscale=254.0,
+                    dmax=127):
     """Lockstep propagation of one direction for the S streams of each
     set (pos0, vec0, npts0, ovecs_flat): one set per seed shard, each on
     its field's device.  One Python loop over the steps launches every
@@ -170,15 +180,25 @@ def _propagate_many(sets, nsteps, shape3, step_size, cosang_thresh,
     the reference's single length budget (reference: src/stream.jl:
     648-686).
 
-    Returns one (out [nsteps, S, 3] saved positions, saved [nsteps, S],
-    npts_total [S]) per set."""
+    emit="points": out is the saved float32 positions.  emit="deltas":
+    out is the int8 error-feedback step deltas at 1/qscale voxel, clipped
+    to [-dmax, dmax]: the quantizer carries the decoded position, so the
+    error is bounded at every point (fibers_tpu/tract/stream.py:
+    _propagate).
+
+    Returns one (out [nsteps, S, 3], saved [nsteps, S], npts_total [S],
+    anchor [S, 3]) per set; `anchor` is the quantized chain's final
+    position, the line's most distal point for the delta decode (the
+    start position with emit="points")."""
+    deltas = emit == "deltas"
     state = []
     for pos0, vec0, npts0, ov in sets:
         s, dev = pos0.shape[0], pos0.device
         state.append(dict(
-            ov=ov, pos=pos0, vec=vec0, npts=npts0,
+            ov=ov, pos=pos0, vec=vec0, npts=npts0, pos_q=pos0,
             active=torch.ones(s, dtype=torch.bool, device=dev),
-            outs=torch.empty((nsteps, s, 3), dtype=pos0.dtype, device=dev),
+            outs=torch.empty((nsteps, s, 3), device=dev,
+                             dtype=torch.int8 if deltas else pos0.dtype),
             saved=torch.empty((nsteps, s), dtype=torch.bool, device=dev)))
     for t in range(nsteps):
         for st in state:
@@ -191,7 +211,11 @@ def _propagate_many(sets, nsteps, shape3, step_size, cosang_thresh,
             # save the CURRENT position (pre-step), as the reference does
             save = st["active"] & inb & okvec
             st["npts"] = st["npts"] + save.to(st["npts"].dtype)
-            st["outs"][t] = pos
+            if deltas:
+                st["outs"][t], st["pos_q"] = _quantize_step(
+                    pos, st["pos_q"], save, qscale, dmax)
+            else:
+                st["outs"][t] = pos
             st["saved"][t] = save
 
             # post-save stopping rules
@@ -203,7 +227,26 @@ def _propagate_many(sets, nsteps, shape3, step_size, cosang_thresh,
             st["vec"] = torch.where(
                 cont[:, None], _smooth_dir(vec, vnext, smooth_coeff), vec)
             st["active"] = cont
-    return [(st["outs"], st["saved"], st["npts"]) for st in state]
+    return [(st["outs"], st["saved"], st["npts"], st["pos_q"])
+            for st in state]
+
+
+def _quantize_step(pos, pos_q, save, qscale, dmax):
+    """One step of the error-feedback quantizer: (delta [S, 3], integral
+    float32 values for an int8 store, and the new decoded position).
+    d = clip(round((pos - pos_q) * qscale), -dmax, dmax), zero where the
+    point is not saved, and pos_q advances by d / qscale with the step
+    rounded to float32, as the reference's weak constants are.
+
+    The reference's `pos_q + d * (1 / qscale)` is one fused multiply-add
+    in XLA: a single rounding.  Here it is a float64 sum rounded once to
+    float32, which is the same number: d (|d| <= 127) times the float32
+    step is exact in float64, and so is its sum with a float32 position
+    of a volume's size."""
+    d = torch.clamp(torch.round((pos - pos_q) * qscale), -dmax, dmax)
+    d = torch.where(save[:, None], d, 0.0)
+    step = float(np.float32(1.0 / qscale))
+    return d, torch.add(pos_q.double(), d, alpha=step).float()
 
 
 def _seed_state(seeds, subs, ovecs_flat, shape3):
@@ -216,50 +259,64 @@ def _seed_state(seeds, subs, ovecs_flat, shape3):
 
 
 def propagate_chunk(seeds, subs, ovecs_flat, shape3, nsteps, step_size,
-                    cosang_thresh, smooth_coeff, len_max):
+                    cosang_thresh, smooth_coeff, len_max, emit="points",
+                    qscale=254.0, dmax=127):
     """Forward + backward propagation of a chunk of seed positions.
 
     seeds, subs: [S, 3] host arrays (seed voxel, sub-voxel offset).
-    Returns (fwd_out, fwd_n, bwd_out, bwd_n) on the device of
-    `ovecs_flat`: [nsteps, S, 3] saved points and [S] int32 counts."""
+    Returns (fwd_out, fwd_n, bwd_out, bwd_n, anchor) on the device of
+    `ovecs_flat`: [nsteps, S, 3] saved points (emit="points") or int8
+    deltas (emit="deltas"), [S] int32 counts, and the forward chain's
+    final quantized position [S, 3], the line anchor of the delta
+    decode."""
     return propagate_shards([(seeds, subs, ovecs_flat)], shape3, nsteps,
                             step_size, cosang_thresh, smooth_coeff,
-                            len_max)[0]
+                            len_max, emit, qscale, dmax)[0]
 
 
 def propagate_shards(parts, shape3, nsteps, step_size, cosang_thresh,
-                     smooth_coeff, len_max):
+                     smooth_coeff, len_max, emit="points", qscale=254.0,
+                     dmax=127):
     """`propagate_chunk` for the seed shards `parts` [(seeds, subs,
     ovecs_flat)], each on its field's device, their steps interleaved
-    (`_propagate_many`).  Returns one (fwd_out, fwd_n, bwd_out, bwd_n)
-    per shard."""
+    (`_propagate_many`).  Returns one (fwd_out, fwd_n, bwd_out, bwd_n,
+    anchor) per shard."""
     starts = [_seed_state(sd, sb, ov, shape3) for sd, sb, ov in parts]
-    args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff, len_max)
+    args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff, len_max,
+            emit, qscale, dmax)
     fwd = _propagate_many(
         [(p0, v0, torch.zeros(p0.shape[0], dtype=torch.int32,
                                device=p0.device), ov)
          for (p0, v0), (_, _, ov) in zip(starts, parts)], *args)
     bwd = _propagate_many(
-        [(p0, -v0, nf, ov) for (p0, v0), (_, _, nf), (_, _, ov)
+        [(p0, -v0, nf, ov) for (p0, v0), (_, _, nf, _), (_, _, ov)
          in zip(starts, fwd, parts)], *args)
     return [(fo, fs.sum(dim=0, dtype=torch.int32),
-             bo, bs.sum(dim=0, dtype=torch.int32))
-            for (fo, fs, _), (bo, bs, _) in zip(fwd, bwd)]
+             bo, bs.sum(dim=0, dtype=torch.int32), fq)
+            for (fo, fs, _, fq), (bo, bs, _, _) in zip(fwd, bwd)]
 
 
 # ------------------------------------------------------------------ #
 # Compaction and the chunk driver
 # ------------------------------------------------------------------ #
 
-def _compact(fwd_out, bwd_out, fwd_n, bwd_n, keep, line_off, total):
+def _compact(fwd_out, bwd_out, fwd_n, bwd_n, keep, line_off, total,
+             mode="f32"):
     """Scatter one propagated chunk into its final ragged line layout on
     the device: each kept line is its reversed forward prefix, then its
     backward prefix (the reference's prepend/append order).  Points of
     dropped streams and unsaved steps go to a spare row past `total` that
-    is cut off.  fwd_out/bwd_out: [nsteps, S, ...] per-step values, the
+    is cut off.
+
+    mode="f32": fwd_out/bwd_out are [nsteps, S, ...] per-step values, the
     points [.., 3] or the LCM's per-point scalar flags (the counterpart
-    of the reference's _compact_scalars).  Returns [total, ...] in line
-    order."""
+    of the reference's _compact_scalars); returns [total, ...] in line
+    order.  mode="i8"/"i6": they are int8 step deltas and the result is
+    the line-order deltas line[j] - line[j-1] (forward deltas negated and
+    shifted by one, since that segment is laid out reversed; each line's
+    first slot keeps its zero), [total, 3] int8 for "i8" and the 6-bit
+    packing of them (`_pack6`) for "i6".  (fibers_tpu/tract/stream.py:
+    _compact)"""
     nsteps = fwd_out.shape[0]
     dev = fwd_out.device
     t_idx = torch.arange(nsteps, dtype=torch.int64, device=dev)[:, None]
@@ -267,14 +324,139 @@ def _compact(fwd_out, bwd_out, fwd_n, bwd_n, keep, line_off, total):
     bwd_n = bwd_n.to(torch.int64)[None, :]
     off = line_off[None, :]
     keep = keep[None, :]
-    dst_f = torch.where((t_idx < fwd_n) & keep, off + fwd_n - 1 - t_idx,
-                        total)
-    dst_b = torch.where((t_idx < bwd_n) & keep, off + fwd_n + t_idx, total)
     tail = tuple(fwd_out.shape[2:])
-    out = torch.empty((total + 1,) + tail, dtype=fwd_out.dtype, device=dev)
-    out[dst_f.reshape(-1)] = fwd_out.reshape((-1,) + tail)
+    dst_b = torch.where((t_idx < bwd_n) & keep, off + fwd_n + t_idx, total)
+    if mode == "f32":
+        dst_f = torch.where((t_idx < fwd_n) & keep, off + fwd_n - 1 - t_idx,
+                            total)
+        out = torch.empty((total + 1,) + tail, dtype=fwd_out.dtype,
+                          device=dev)
+        fwd_out = fwd_out.reshape((-1,) + tail)
+    else:
+        # zero-initialised: each line's first slot must read "no delta"
+        dst_f = torch.where((t_idx >= 1) & (t_idx < fwd_n) & keep,
+                            off + fwd_n - t_idx, total)
+        out = torch.zeros((total + 1,) + tail, dtype=fwd_out.dtype,
+                          device=dev)
+        fwd_out = -fwd_out.reshape((-1,) + tail)
+    out[dst_f.reshape(-1)] = fwd_out
     out[dst_b.reshape(-1)] = bwd_out.reshape((-1,) + tail)
-    return out[:total]
+    out = out[:total]
+    return _pack6(out) if mode == "i6" else out
+
+
+def _pack6(q: torch.Tensor) -> torch.Tensor:
+    """int8 deltas in [-31, 31] -> the 6-bit wire: sign-offset fields
+    (d + 32) & 63, 16 to 3 words (fields 5 and 10 straddle a word
+    boundary), the field count padded to a multiple of 16 with zero
+    deltas.  Built in int64 and kept to the low 32 bits as int32 (torch
+    has few uint32 kernels); the host reads the words as uint32.
+    (fibers_tpu/tract/stream.py:_compact mode="i6"; inverse `_unpack6`)"""
+    q = q.reshape(-1)
+    pad = (-q.numel()) % 16
+    if pad:
+        q = torch.cat([q, q.new_zeros(pad)])
+    g = ((q.to(torch.int64) + 32) & 63).reshape(-1, 16)
+    w0 = (g[:, 0] | (g[:, 1] << 6) | (g[:, 2] << 12) | (g[:, 3] << 18)
+          | (g[:, 4] << 24) | ((g[:, 5] & 3) << 30))
+    w1 = ((g[:, 5] >> 2) | (g[:, 6] << 4) | (g[:, 7] << 10)
+          | (g[:, 8] << 16) | (g[:, 9] << 22) | ((g[:, 10] & 15) << 28))
+    w2 = ((g[:, 10] >> 4) | (g[:, 11] << 2) | (g[:, 12] << 8)
+          | (g[:, 13] << 14) | (g[:, 14] << 20) | (g[:, 15] << 26))
+    w = torch.stack([w0, w1, w2], dim=1).reshape(-1)
+    # low 32 bits as a signed value, then an exact int32 cast
+    return (w - ((w & 0x80000000) << 1)).to(torch.int32)
+
+
+def _unpack6(raw, nvals):
+    """Expand the packed 6-bit wire (uint32 words; 16 sign-offset fields
+    per 3 words, `_pack6`) to int8 deltas of length >= nvals, which then
+    feed the int8 decoders unchanged.  The result is a pooled scratch
+    view (utils/hostbuf.py): valid only until the next _unpack6 call.
+    A copy of fibers_tpu/tract/stream.py:_unpack6."""
+    w = np.ascontiguousarray(raw.view(np.uint32))
+    ngroups = (nvals + 15) // 16
+    out = scratch("wire.unpack6", ngroups * 16, np.int8)
+    clib = native.lib()
+    if clib is not None:
+        clib.unpack_sext6(native.as_u32_ptr(w),
+                          np.int64(ngroups * 16), native.as_i8_ptr(out))
+        return out
+    g = w[:ngroups * 3].reshape(-1, 3)
+    w0, w1, w2 = g[:, 0], g[:, 1], g[:, 2]
+    v = scratch("wire.unpack6v", ngroups * 16,
+                np.uint32).reshape(ngroups, 16)
+    v[:, 0] = w0
+    v[:, 1] = w0 >> 6
+    v[:, 2] = w0 >> 12
+    v[:, 3] = w0 >> 18
+    v[:, 4] = w0 >> 24
+    v[:, 5] = (w0 >> 30) | (w1 << np.uint32(2))
+    v[:, 6] = w1 >> 4
+    v[:, 7] = w1 >> 10
+    v[:, 8] = w1 >> 16
+    v[:, 9] = w1 >> 22
+    v[:, 10] = (w1 >> 28) | (w2 << np.uint32(4))
+    v[:, 11] = w2 >> 2
+    v[:, 12] = w2 >> 8
+    v[:, 13] = w2 >> 14
+    v[:, 14] = w2 >> 20
+    v[:, 15] = w2 >> 26
+    out[:] = ((v & 63).astype(np.int16) - 32).astype(np.int8).reshape(-1)
+    return out
+
+
+def _decode_points(raw, total, mode, npts=None, anchors=None, out=None,
+                   qscale=254.0):
+    """Decode a fetched wire buffer to [total, 3] positions (into `out`
+    when given).  mode="i8": raw holds int8 line-order deltas; each line
+    is its anchor + cumulative deltas / qscale.  mode="i6": 6-bit fields,
+    expanded to int8, then decoded as i8.  A copy of
+    fibers_tpu/tract/stream.py:_decode_points."""
+    if mode == "i6":
+        raw = _unpack6(raw, total * 3)
+        mode = "i8"
+    if out is None:
+        out = np.empty((total, 3), np.float32)
+    if mode == "i8":
+        q = np.ascontiguousarray(raw.view(np.int8).reshape(-1)[:total * 3])
+        off = np.zeros(len(npts), np.int64)
+        np.cumsum(npts[:-1], dtype=np.int64, out=off[1:])
+        clib = native.lib()
+        if clib is not None:
+            # one integer-accumulate pass per line, OpenMP-parallel
+            anch = np.ascontiguousarray(anchors, np.float32)
+            npts32 = np.ascontiguousarray(npts, np.int32)
+            clib.decode_delta_lines(
+                native.as_i8_ptr(q), native.as_i64_ptr(off),
+                native.as_i32_ptr(npts32), native.as_f32_ptr(anch),
+                len(npts), np.float32(1.0 / qscale),
+                native.as_f32_ptr(out))
+            return out
+        # numpy fallback: global integer cumsum, per-line rebase to the
+        # anchor (the first slot of each line holds a zero delta)
+        c = np.cumsum(q.reshape(-1, 3), axis=0, dtype=np.int64)
+        base = anchors.astype(np.float64) - c[off] * (1.0 / qscale)
+        out[:] = (c * (1.0 / qscale)
+                  + np.repeat(base, npts, axis=0)).astype(np.float32)
+        return out
+    out[:] = raw[:total * 3].reshape(total, 3)
+    return out
+
+
+def _wire_mode(cfg, step_size):
+    """The point wire: (mode, emit, qscale, dmax).  "auto" and "f32" (and
+    `exact_points`) give exact float32 points, "i8"/"i6" int8 or 6-bit
+    error-feedback deltas with the full quantizer range per step,
+    qscale = dmax / step_size.  (fibers_tpu/tract/stream.py:_wire_mode,
+    with "auto" resolved as on the reference's CPU backend)"""
+    if cfg.wire not in ("auto", "f32", "i8", "i6"):
+        raise ValueError(f"Unknown wire mode {cfg.wire!r} "
+                         "(expected auto/f32/i8/i6)")
+    mode = "f32" if cfg.exact_points or cfg.wire == "auto" else cfg.wire
+    emit = "points" if mode == "f32" else "deltas"
+    dmax = 31 if mode == "i6" else 127
+    return mode, emit, dmax / max(float(step_size), 1e-6), dmax
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -305,16 +487,20 @@ class _TrkStream(TrkSink):
         super().close()
 
 
-def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False):
+def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False,
+           mode="f32", qscale=254.0):
     """One loop over seed chunks: propagate, compact the kept lines on the
     device, copy them to the host, append them to the sink or keep them
     for the Tract.  Returns the finished Tract.
 
-    launch(lo) -> (fwd_out, fwd_n, bwd_out, bwd_n) or, with has_scalars,
-    (..., fwd_scal, bwd_scal): [nsteps, S] int8 per-point flags that go
-    with the points as the Tract's one scalar.  A sharded launch returns
-    a list of such tuples, one per seed shard in seed order; each is
-    compacted on its own device."""
+    launch(lo) -> (fwd_out, fwd_n, bwd_out, bwd_n, anchor) or, with
+    has_scalars, (..., fwd_scal, bwd_scal): [nsteps, S] int8 per-point
+    flags that go with the points as the Tract's one scalar.  A sharded
+    launch returns a list of such tuples, one per seed shard in seed
+    order; each is compacted on its own device.  `mode`: the point wire
+    (`_wire_mode`); with "i8"/"i6" the outputs are deltas, the anchors
+    come to the host in the one copy of the counts, and the host decodes
+    (natively into the .trk records with a sink)."""
     if has_scalars:
         tr.n_scalars = 1          # before the sink writes the header
     sink = _TrkStream(trk_sink, tr) if trk_sink is not None else None
@@ -322,9 +508,15 @@ def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False):
     with sink if sink is not None else contextlib.nullcontext():
         for lo in starts:
             out = launch(lo)
-            for fwd_out, fwd_n_d, bwd_out, bwd_n_d, *scal in (
+            for fwd_out, fwd_n_d, bwd_out, bwd_n_d, anchor, *scal in (
                     out if isinstance(out, list) else [out]):
-                fwd_n, bwd_n = _to_host(torch.stack([fwd_n_d, bwd_n_d]))
+                s = fwd_n_d.shape[0]
+                meta = [fwd_n_d, bwd_n_d]
+                if mode != "f32":
+                    # the anchors' bits ride with the counts: one copy
+                    meta.append(anchor.reshape(-1).view(torch.int32))
+                meta = _to_host(torch.cat(meta))
+                fwd_n, bwd_n = meta[:s], meta[s:2 * s]
                 tot = fwd_n.astype(np.int64) + bwd_n
                 keep = tot >= len_min
                 if not keep.any():
@@ -333,13 +525,22 @@ def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False):
                 off = np.zeros(len(tot), np.int64)
                 off[keep] = np.concatenate([[0], np.cumsum(npts)[:-1]])
                 dev = fwd_out.device
+                total = int(npts.sum())
                 lines = (fwd_n_d, bwd_n_d, upload(keep, dev),
-                         upload(off, dev), int(npts.sum()))
-                pts = _to_host(_compact(fwd_out, bwd_out, *lines))
+                         upload(off, dev), total)
+                raw = _to_host(_compact(fwd_out, bwd_out, *lines, mode))
                 sc = _to_host(_compact(*scal, *lines)).astype(np.float32) \
                     if has_scalars else None
                 npts = npts.astype(np.int32)
                 counts.append(npts)
+                anch = None if mode == "f32" else \
+                    meta[2 * s:].view(np.float32).reshape(s, 3)[keep]
+                if (sink is not None and sc is None and mode != "f32"
+                        and _append_fused(sink, raw, npts, anch, mode,
+                                          qscale)):
+                    continue
+                pts = raw if mode == "f32" else _decode_points(
+                    raw, total, mode, npts=npts, anchors=anch, qscale=qscale)
                 if sink is not None:
                     sink.append(pts, npts,
                                 None if sc is None else sc[:, None])
@@ -358,6 +559,15 @@ def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False):
     tr.set_packed(np.concatenate(parts) if parts
                   else np.zeros((0, 3), np.float32), npts, scalars=scalars)
     return tr
+
+
+def _append_fused(sink, raw, npts, anchors, mode, qscale):
+    """The sink's fused native decode of a delta wire chunk straight into
+    .trk records; False when the native library is missing."""
+    if mode == "i6":
+        return sink.append_deltas6(raw.view(np.uint32), npts, anchors,
+                                   qscale)
+    return sink.append_deltas(raw.reshape(-1), npts, anchors, qscale)
 
 
 # ------------------------------------------------------------------ #
@@ -587,7 +797,7 @@ def stream_new_line(seed_vox, sub_vox, work: StreamWork) -> np.ndarray:
     through the batched engine, exact float32 points."""
     seeds = np.asarray(seed_vox, np.float32)[None, :]
     subs = np.asarray(sub_vox, np.float32)[None, :]
-    fwd, fwd_n, bwd, bwd_n = propagate_chunk(
+    fwd, fwd_n, bwd, bwd_n, _ = propagate_chunk(
         seeds, subs, work.ovec_flat, work.shape3, int(work.len_max) + 2,
         float(work.step_size), float(np.cos(np.radians(work.ang_thresh))),
         float(work.smooth_coeff), int(work.len_max))
@@ -675,16 +885,6 @@ def stream_micro_new_point(pos_now, vec_now, work: StreamWork):
     return cells[cand[ib]].astype(np.float64), vec_next, True
 
 
-def _check_ported(cfg: StreamConfig):
-    if cfg.wire not in ("auto", "f32", "i8", "i6"):
-        raise ValueError(f"Unknown wire mode {cfg.wire!r} "
-                         "(expected auto/f32/i8/i6)")
-    if cfg.wire in ("i8", "i6") and not cfg.exact_points:
-        raise NotImplementedError(
-            f"stream(wire={cfg.wire!r}): the quantized point wires are not "
-            "ported yet (ROADMAP A14); use wire='f32'")
-
-
 def _launch_sharded(seeds, subs, mesh, fields, args):
     """One chunk's seeds split over the mesh's data axis (this process's
     shards), padded to a multiple of it with out-of-volume seeds (-10),
@@ -701,8 +901,8 @@ def _launch_sharded(seeds, subs, mesh, fields, args):
     outs = propagate_shards(
         [(seeds[i * per:(i + 1) * per], subs[i * per:(i + 1) * per],
           fields[mesh.data_devices[i]]) for i, _ in shards], *args)
-    return [(fo[:, :r], fn[:r], bo[:, :r], bn[:r])
-            for (_, r), (fo, fn, bo, bn) in zip(shards, outs)]
+    return [(fo[:, :r], fn[:r], bo[:, :r], bn[:r], fq[:r])
+            for (_, r), (fo, fn, bo, bn, fq) in zip(shards, outs)]
 
 
 def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
@@ -719,22 +919,25 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     `StreamConfig` fields override its defaults.  `odf` is accepted for
     API parity and ignored, like the reference.
 
-    Points are exact float32 (`wire="auto"`/"f32", or `exact_points`).
-    `device` places a host orientation field (None: the card);
+    Points: exact float32 with `wire="auto"` (the default) or "f32", or
+    with `exact_points`; `wire="i8"` quantizes them to int8 error-feedback
+    deltas at 1/qscale voxel (qscale = 127/step_size; error <= ~2/qscale
+    at every point, no drift) and "i6" to 6-bit ones (qscale =
+    31/step_size), decoded on the host as in the reference.  `device`
+    places a host orientation field (None: the card);
     `DevicePeaks` stay where they are.  `mesh=` (parallel/mesh.py) shards
     each chunk's seeds over the mesh's "data" axis, padded to a multiple
     of it with out-of-volume seeds, against a copy of the field on every
     device; the lines come out in seed order, as without a mesh.
     `lcms=` runs the probabilistic LCM mode and a voxel size <= 0.05 mm
     the microscopy mode (tract/modes.py), both from host volumes only and
-    unsharded (on a mesh's first device), as in the reference.  The
-    quantized point wires are not ported yet and raise.
+    unsharded (on a mesh's first device), as in the reference.
     """
     del odf
     work = StreamWork(ovec, f=f, fa=fa, mask=mask, cfg=cfg, device=device,
                       **kwargs)
     cfg = work.cfg
-    _check_ported(cfg)
+    wire = _wire_mode(cfg, work.step_size)
     if lcms is not None or work.domicro:
         if work.device_peaks is not None:
             raise ValueError("device-resident peaks drive the "
@@ -742,8 +945,8 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
                              "volumes for LCM/microscopy modes")
         from .modes import stream_lcm, stream_micro
         if lcms is not None:
-            return stream_lcm(work, seed, lcms)
-        return stream_micro(work, seed)
+            return stream_lcm(work, seed, lcms, wire)
+        return stream_micro(work, seed, wire)
     seed_idx = _seed_voxels(work.mask_array, seed)
 
     # sub-voxel jitter: nsub offsets shared by all seed voxels, the same
@@ -761,8 +964,9 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     nsteps = int(work.len_max) + 2
     cosang_thresh = float(np.cos(np.radians(work.ang_thresh)))
 
+    mode, emit, qscale, dmax = wire
     args = (work.shape3, nsteps, float(work.step_size), cosang_thresh,
-            float(work.smooth_coeff), int(work.len_max))
+            float(work.smooth_coeff), int(work.len_max), emit, qscale, dmax)
 
     def launch(lo):
         hi = min(lo + cfg.chunk, len(seeds_all))
@@ -773,4 +977,5 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
                                cfg.mesh, work.fields, args)
 
     starts = list(range(0, len(seeds_all), cfg.chunk))
-    return _drive(launch, starts, cfg.len_min, tr, cfg.trk_sink)
+    return _drive(launch, starts, cfg.len_min, tr, cfg.trk_sink, mode=mode,
+                  qscale=qscale)

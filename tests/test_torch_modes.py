@@ -142,9 +142,49 @@ def test_micro_sink_matches_tract(tmp_path):
 
 @pytest.mark.parametrize("wire", ["i8", "i6"])
 def test_micro_quantized_wires_raise(wire):
+    """An explicit i8/i6 with jittered seeds (nsub=3) cannot be carried
+    by the micro mode's one-voxel integer wire: it warns, as the
+    reference does, and the points are the exact float32 ones, equal to
+    the reference's."""
     ov, mask, seed = _micro_corridor()
-    with pytest.raises(NotImplementedError, match="A14"):
-        tt.stream(as_port(ov), mask=mask, seed=seed, wire=wire, device="cpu")
+    kw = dict(mask=mask, seed=seed, wire=wire)
+    with pytest.warns(RuntimeWarning, match="cannot represent"):
+        got = tt.stream(as_port(ov), device="cpu", **kw)
+    with pytest.warns(RuntimeWarning, match="cannot represent"):
+        want = ft.stream(ov, **kw)
+    exact = tt.stream(as_port(ov), device="cpu", mask=mask, seed=seed,
+                      wire="f32")
+    assert got.n_count == want.n_count > 0
+    assert np.array_equal(got.packed_xyz, exact.packed_xyz)
+    assert np.array_equal(got.packed_xyz, want.packed_xyz)
+
+
+@pytest.mark.parametrize("wire", ["i8", "i6"])
+@pytest.mark.parametrize("case", ["corridor", "angles"])
+def test_micro_integer_wire_is_exact(case, wire, tmp_path):
+    """With voxel-centre seeds (nsub=0) the micro mode's points ride the
+    integer wire (one-voxel deltas, qscale = 1): the lines equal the
+    float32 ones and the reference's i8/i6 lines exactly, in memory and
+    in the .trk."""
+    if case == "corridor":
+        ov, mask, seed = _micro_corridor()
+        kw = dict(search_dist=3, len_max=100)
+    else:
+        ov, mask = make_micro_field((20, 18, 2))
+        seed = None
+        kw = dict(search_dist=4)
+    kw.update(mask=mask, seed=seed, nsub=0)
+    exact = tt.stream(as_port(ov), device="cpu", wire="f32", **kw)
+    got = tt.stream(as_port(ov), device="cpu", wire=wire, **kw)
+    want = ft.stream(as_ref(ov), wire=wire, **kw)
+    assert got.n_count == want.n_count == exact.n_count > 0
+    for other in (exact, want):
+        assert np.array_equal(got.npts, other.npts)
+        assert np.array_equal(got.packed_xyz, other.packed_xyz)
+    pt, pj = tmp_path / "t.trk", tmp_path / "j.trk"
+    tt.stream(as_port(ov), device="cpu", wire=wire, trk_sink=str(pt), **kw)
+    ft.stream(as_ref(ov), wire=wire, trk_sink=str(pj), **kw)
+    assert pt.read_bytes() == pj.read_bytes()
 
 
 # ------------------------------------------------------------------ #
@@ -408,6 +448,32 @@ def test_lcm_sink_scalars_match_tract(tmp_path):
         np.testing.assert_array_equal(back.scalars[i], mem.scalars[i])
     with open(packed_f, "rb") as a, open(line_f, "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("wire", ["i8", "i6"])
+def test_lcm_wire_against_own_f32(wire, tmp_path):
+    """LCM lines match the reference only in distribution (C8), so the
+    quantized wire is held against the port's own float32 run with the
+    same seed, whose draws are the same: equal point counts and flags,
+    points within 2/qscale; the .trk (points and flags through the
+    decode) reads back the same lines."""
+    ovecs, lcm, mask = make_lcm_field((24, 24))
+    kw = dict(mask=mask, lcms=lcm, nsub=1, seed_rng=2, device="cpu")
+    exact = tt.stream(as_port(ovecs), wire="f32", **kw)
+    got = tt.stream(as_port(ovecs), wire=wire, **kw)
+    assert got.n_count == exact.n_count > 0
+    assert np.array_equal(got.npts, exact.npts)
+    assert np.array_equal(got.packed_scalars, exact.packed_scalars)
+    qscale = (31 if wire == "i6" else 127) / 0.5
+    assert np.abs(got.packed_xyz - exact.packed_xyz).max() <= 2.0 / qscale
+    path = str(tmp_path / "lcm.trk")
+    tt.stream(as_port(ovecs), wire=wire, trk_sink=path, **kw)
+    back = tt.trk_read(path)
+    assert np.array_equal(back.npts, got.npts) and back.n_scalars == 1
+    got.materialize()
+    for i in range(got.n_count):
+        np.testing.assert_allclose(back.xyz[i], got.xyz[i], atol=1e-5)
+        np.testing.assert_array_equal(back.scalars[i], got.scalars[i])
 
 
 def test_lcm_field_against_jax_in_distribution():

@@ -258,12 +258,20 @@ class TestShardedBatchAPI:
         np.testing.assert_allclose(got.fa.vol, want.fa.vol, **FIT)
 
     def test_quantized_wire_raises_on_the_mesh(self, tmp_mri):
-        """test_parallel.py's u12 mesh case waits for ROADMAP A14."""
+        """The u12 wire on the mesh (test_parallel.py's
+        test_prepare_batch_mesh_u12_equals_local_u12): each shard decodes
+        its rows, bit-equal to the unsharded u12 batch and to the JAX
+        package's sharded one."""
+        _require_jax_devices(8)
         mri, _ = tmp_mri
         mask = ft.MRI.like(mri, 1, np.float32)
         mask.vol[:] = 1
-        with pytest.raises(NotImplementedError, match="A14"):
-            tt.prepare_batch(mri, mask, mesh=cpu_mesh(8), wire="u12")
+        b = tt.prepare_batch(mri, mask, mesh=cpu_mesh(8), wire="u12")
+        local = tt.prepare_batch(mri, mask, wire="u12", device="cpu")
+        jb = ft.prepare_batch(mri, mask, mesh=jmake_mesh(8), wire="u12")
+        assert b.mesh is not None and b.signals.dtype == torch.float32
+        assert np.array_equal(b.signals.numpy(), local.signals.numpy())
+        assert np.array_equal(b.signals.numpy(), np.asarray(jb.signals))
 
 
 # ------------------------------------------------------------------ #

@@ -71,9 +71,13 @@ def test_prepare_batch_matches_jax():
 
 @pytest.mark.parametrize("wire", ["u16", "u12", "u8", "auto8"])
 def test_prepare_batch_quantized_wires_raise(wire):
+    """The quantized wires no longer raise: the decoded batch is the
+    reference's bit for bit (on its CPU backend "auto8" is exact)."""
     dwi, mask, _, _ = make_phantom(shape=(3, 3, 3), ndir=12)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tt.prepare_batch(dwi, mask, wire=wire, device="cpu")
+    bt = tt.prepare_batch(dwi, mask, wire=wire, device="cpu")
+    bj = ft.prepare_batch(dwi, mask, wire=wire)
+    assert bt.signals.dtype == torch.float32
+    assert np.array_equal(bt.signals.numpy(), np.asarray(bj.signals))
 
 
 def test_prepare_batch_rejects_mesh_and_unknown_wire():

@@ -542,11 +542,13 @@ def test_rumba_card_matches_cpu(cuda, tv_bf16):
     dwi, mask = _masked_phantom((8, 7, 6))
     counter = tv_multiplier if tv_bf16 else tv_fused
     before = counter.launches
+    # the exact signal on both devices: the card's default u12 wire is
+    # held to the exact signal in tests/test_torch_wire.py
     g = tt.rumba_rec(dwi, mask, ft.sphere_362, niter=10, tv_bf16=tv_bf16,
-                     device="cuda")
+                     device="cuda", signal_wire="f32")
     assert counter.launches == before + 10
     c = tt.rumba_rec(dwi, mask, ft.sphere_362, niter=10, tv_bf16=tv_bf16,
-                     device="cpu")
+                     device="cpu", signal_wire="f32")
     # bf16: an ulp of f32 difference between the card's and the CPU's
     # products can flip the bf16 rounding of a stack value, which moves
     # the multiplier by ~2^-9 of a difference (6.4e-6 on the fODF

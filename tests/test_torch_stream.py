@@ -204,17 +204,28 @@ def test_stream_empty_seed_set(tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(wire="i8"), NotImplementedError),
-    (dict(wire="i6"), NotImplementedError),
+    (dict(wire="i8"), None),
+    (dict(wire="i6"), None),
     (dict(wire="i4"), ValueError),
-    # the quantized wires raise on the sharded path too
-    (dict(wire="i6", mesh=make_mesh(2, device="cpu")), NotImplementedError),
+    # the sharded path too
+    (dict(wire="i6", mesh=make_mesh(2, device="cpu")), None),
     (dict(bogus=1), TypeError),
 ])
 def test_stream_unported_options_raise(kw, exc):
+    """An unknown wire or option raises.  The quantized point wires run,
+    sharded too: without smoothing the port's positions are the
+    reference's bit for bit, and so are its i8/i6 lines."""
     ovm, maskm, _ = _smooth_field()
-    with pytest.raises(exc):
-        tt.stream(as_port(ovm), mask=maskm, device="cpu", **kw)
+    if exc is not None:
+        with pytest.raises(exc):
+            tt.stream(as_port(ovm), mask=maskm, device="cpu", **kw)
+        return
+    got = tt.stream(as_port(ovm), mask=maskm, device="cpu", smooth_coeff=0.0,
+                    **kw)
+    want = ft.stream(ovm, mask=maskm, smooth_coeff=0.0, wire=kw["wire"])
+    assert got.n_count == want.n_count > 0
+    assert np.array_equal(got.npts, want.npts)
+    assert np.array_equal(got.packed_xyz, want.packed_xyz)
 
 
 def test_stream_exact_points_overrides_quantized_wire():
@@ -355,18 +366,19 @@ def _guard_launches(monkeypatch, guard):
     return made
 
 
-def _run_three_engines(device):
+def _run_three_engines(device, wire="auto"):
     """One small deterministic, LCM and microscopy run; their tracts."""
     from fibers_tpu_torch.utils.phantom import (make_lcm_field,
                                                 make_micro_field)
     ovm, maskm, _ = _smooth_field()
     det = tt.stream(as_port(ovm), mask=as_port(maskm), nsub=2, device=device,
-                    chunk=500)
+                    chunk=500, wire=wire)
     ovecs, lcm, lmask = make_lcm_field((24, 24))
-    lcm_t = tt.stream(ovecs, mask=lmask, lcms=lcm, device=device)
+    lcm_t = tt.stream(ovecs, mask=lmask, lcms=lcm, device=device, wire=wire)
     mov, mmask = make_micro_field((20, 18, 2))
     mic = tt.stream(mov, mask=mmask, search_dist=5, device=device, nsub=None,
-                    ang_thresh=None, step_size=None, smooth_coeff=None)
+                    ang_thresh=None, step_size=None, smooth_coeff=None,
+                    wire=wire)
     return det, lcm_t, mic
 
 
@@ -416,3 +428,150 @@ def test_step_loops_do_not_sync_on_card(monkeypatch):
     with pytest.raises(RuntimeError):
         with _SyncIsAnError():
             torch.ones(3, device="cuda").cpu()
+
+
+@pytest.mark.cuda
+def test_i6_step_loops_do_not_sync_on_card(monkeypatch):
+    """The three engines' step loops with the i6 quantizer run under the
+    sync debug mode too, and their lines keep the float32 run's point
+    counts within the wire's bound (micro: exactly)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the sync debug mode is CUDA's")
+    exact = _run_three_engines("cuda", "f32")
+    made = _guard_launches(monkeypatch, _SyncIsAnError())
+    got = _run_three_engines("cuda", "i6")
+    assert len(made) >= 4
+    for a, b in zip(got[::2], exact[::2]):          # LCM draws differ
+        assert a.n_count == b.n_count > 0
+        assert np.array_equal(a.npts, b.npts)
+    assert np.abs(got[0].packed_xyz - exact[0].packed_xyz).max() <= \
+        2.0 / _qscale("i6")
+    assert np.array_equal(got[2].packed_xyz, exact[2].packed_xyz)
+
+
+# ------------------------------------------------------------------ #
+# Quantized point wires (i8, i6)
+# ------------------------------------------------------------------ #
+
+def _qscale(wire, step=0.5):
+    return (31 if wire == "i6" else 127) / step
+
+
+@pytest.mark.parametrize("wire", ["i8", "i6"])
+def test_stream_wire_trk_bytes_equal_jax(wire, tmp_path):
+    """Without smoothing both engines' positions are bit-equal, and so
+    are the i8/i6 deltas, anchors, decoded lines and .trk bytes (the
+    port's quantizer rounds its step as XLA's fused multiply-add does)."""
+    ovm, maskm, _ = _smooth_field()
+    kw = dict(mask=maskm, nsub=3, seed_rng=3, smooth_coeff=0.0, wire=wire)
+    tj = ft.stream(ovm, **kw)
+    tr = tt.stream(as_port(ovm), device="cpu", **kw)
+    assert tr.n_count == tj.n_count > 0
+    assert np.array_equal(tr.npts, tj.npts)
+    assert np.array_equal(tr.packed_xyz, tj.packed_xyz)
+    pj, pt = tmp_path / "j.trk", tmp_path / "t.trk"
+    ft.stream(ovm, trk_sink=str(pj), **kw)
+    tt.stream(as_port(ovm), device="cpu", trk_sink=str(pt), chunk=700, **kw)
+    assert pj.read_bytes() == pt.read_bytes()
+
+
+@pytest.mark.parametrize("wire", ["i8", "i6"])
+def test_stream_wire_error_bound(wire):
+    """With the default smoothing XLA fuses the EMA's multiply and add,
+    so a position may differ in its last bit and a delta may round the
+    other way: the port's lines are within 2/qscale of the reference's
+    i8/i6 lines, and of its own float32 lines (the wire's bound at every
+    point, no drift), with equal point counts."""
+    ovm, maskm, _ = _smooth_field()
+    kw = dict(mask=maskm, nsub=3, seed_rng=3)
+    exact = tt.stream(as_port(ovm), device="cpu", wire="f32", **kw)
+    got = tt.stream(as_port(ovm), device="cpu", wire=wire, **kw)
+    want = ft.stream(ovm, wire=wire, **kw)
+    bound = 2.0 / _qscale(wire)
+    for other in (exact, want):
+        assert got.n_count == other.n_count > 0
+        assert np.array_equal(got.npts, other.npts)
+        assert np.abs(got.packed_xyz - other.packed_xyz).max() <= bound
+
+
+def _no_native(monkeypatch):
+    """Run the numpy fallbacks of the wire: no native library."""
+    from fibers_tpu_torch import native
+    monkeypatch.setattr(native, "lib", lambda: None)
+
+
+@pytest.mark.parametrize("native_lib", [True, False])
+@pytest.mark.parametrize("wire", ["i8", "i6"])
+def test_stream_wire_sink_matches_memory(wire, native_lib, tmp_path,
+                                         monkeypatch):
+    """The sink's fused native decode into .trk records writes the bytes
+    `trk_write` writes for the lines decoded in memory; without the
+    native library both go through the numpy decode."""
+    if not native_lib:
+        _no_native(monkeypatch)
+    ovm, maskm, _ = _smooth_field()
+    kw = dict(mask=maskm, nsub=3, wire=wire, device="cpu", chunk=700)
+    fused, plain = tmp_path / "fused.trk", tmp_path / "plain.trk"
+    tt.stream(as_port(ovm), trk_sink=str(fused), **kw)
+    mem = tt.stream(as_port(ovm), **kw)
+    tt.trk_write(mem, str(plain))
+    assert mem.n_count > 0
+    assert fused.read_bytes() == plain.read_bytes()
+    if not native_lib:
+        want = ft.stream(ovm, mask=maskm, nsub=3, wire=wire)
+        assert np.array_equal(mem.npts, want.npts)
+        assert np.abs(mem.packed_xyz - want.packed_xyz).max() <= \
+            2.0 / _qscale(wire)
+
+
+def test_stream_i6_zero_point_lines(tmp_path):
+    """len_min=0 keeps the lines of no point (seeds whose first step
+    leaves the mask): the i6 wire carries them as empty lines, in memory
+    and in the .trk, as the reference does."""
+    ovm, maskm, _ = _smooth_field()
+    kw = dict(mask=maskm, nsub=2, len_min=0, smooth_coeff=0.0, wire="i6")
+    seed = ft.MRI.like(maskm, 1, np.float32)
+    sv = np.zeros(maskm.vol.shape, np.float32)
+    sv[0] = 1                              # outside the mask
+    sv[5:7] = 1
+    seed.vol = sv
+    got = tt.stream(as_port(ovm), device="cpu", seed=seed, **kw)
+    want = ft.stream(ovm, seed=seed, **kw)
+    assert (got.npts == 0).any() and (got.npts > 0).any()
+    assert np.array_equal(got.npts, want.npts)
+    assert np.array_equal(got.packed_xyz, want.packed_xyz)
+    path = tmp_path / "z.trk"
+    tt.stream(as_port(ovm), device="cpu", seed=seed, trk_sink=str(path),
+              **kw)
+    back = tt.trk_read(str(path))
+    assert np.array_equal(back.npts, got.npts)
+
+
+@pytest.mark.parametrize("native_lib", [True, False])
+@pytest.mark.parametrize("n", [1, 16, 47, 3000])
+def test_unpack6_round_trip(n, native_lib, monkeypatch):
+    """`_pack6` -> uint32 words -> `_unpack6` gives the deltas back, the
+    pad fields read as zero, and the reference's own `_unpack6` reads the
+    port's words the same way."""
+    from fibers_tpu.tract.stream import _unpack6 as ref_unpack6
+    from fibers_tpu_torch.tract.stream import _pack6, _unpack6
+    q = np.random.default_rng(n).integers(-31, 32, n).astype(np.int8)
+    words = _pack6(torch.from_numpy(q)).numpy().view(np.uint32)
+    assert len(words) == -(-n // 16) * 3
+    want = np.concatenate([q, np.zeros(-n % 16, np.int8)])
+    assert np.array_equal(ref_unpack6(words, n)[:len(want)], want)
+    if not native_lib:
+        _no_native(monkeypatch)
+    assert np.array_equal(_unpack6(words, n)[:len(want)], want)
+
+
+def test_stream_sharded_i6_equals_unsharded():
+    """i6 lines on 8 CPU shards (tests/test_parallel.py's
+    test_stream_sharded_i6_wire) equal the unsharded i6 lines."""
+    ovm, maskm, _ = _smooth_field()
+    kw = dict(mask=maskm, nsub=3, wire="i6", device="cpu")
+    one = tt.stream(as_port(ovm), **kw)
+    sh = tt.stream(as_port(ovm), mesh=make_mesh(8, device="cpu"), **kw)
+    assert sh.n_count == one.n_count > 0
+    assert np.array_equal(sh.npts, one.npts)
+    assert np.array_equal(sh.packed_xyz, one.packed_xyz)
