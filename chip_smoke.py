@@ -26,8 +26,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 - DSI (config 3 at full width, chained into ~1M streams), the structure
   tensor on config 4's volume, the LCM and microscopy tractography modes
   and the CLI (`python -m fibers_tpu_torch dsi`/`structens`), with their
-  card-against-CPU checks on small inputs.  These paths run none of the
-  hand-written kernels; their launch counts must stay 0.
+  card-against-CPU checks on small inputs.  The DSI fit, the structure
+  tensor and the modes launch none of the hand-written kernels (their
+  counts must stay 0); the DSI chain's stream launches `propagate_dir`
+  twice a chunk.
 - Wires (`[wire]` lines): the headline pipeline as bench.py:240-261
   writes it (the batch on the u12 upload wire, the points on the i6
   point wire) against the f32 run, and its i6 stream against f32 points
@@ -36,6 +38,16 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   default u12 signal rows against the exact host signal, its signal
   stage beside an f32 one, and its chain streamed on the i6 wire
   against f32 points.
+- Tractography (`[propagate]` lines): the self-check of the propagation
+  kernel's sum of three products against torch's on the card; one
+  131,072-seed chunk of the main path's device peaks (1 vector a voxel)
+  and of the RUMBA chain's (5), f32 and i6: the kernel against the plain
+  step loop on both directions, bit for bit on its four outputs, one
+  direction timed beside the plain loop and a CUDA-graph replay of it
+  (a yardstick only this script builds), with the byte bound; and the
+  stream + write of the main path, the RUMBA chain and DSI's chain
+  through the kernel beside the plain loop (patched in here), their
+  .trk files byte for byte.
 - Mesh (`[mesh]` lines): on two cards when the host has them, else on
   two shards of card 0, the headline pipeline (its stream's chunks under
   the sync debug mode), RUMBA config 4 (20 iterations), DSI config 3,
@@ -54,6 +66,8 @@ against the plain version, kernel, plain and bound times), the
 and as the last line `{"ok": true, "device": {...}}`.
 """
 
+import contextlib
+import filecmp
 import json
 import os
 import subprocess
@@ -76,6 +90,8 @@ KERNELS = [
      "benchmarks/exp_tv_variants.py:40", False),
     ("tv_2slice", "fibers_tpu_torch/csrc/tv_stencil.cu",
      "benchmarks/exp_tv_variants.py:99", False),
+    ("propagate_dir", "fibers_tpu_torch/csrc/propagate.cu",
+     "fibers_tpu/tract/stream.py:149 _propagate (lax.scan, XLA)", True),
 ]
 # the GQI kernel's shapes: the main path's N, and a ragged N at maxdeg 6
 # and 7 (sphere, rows); the first is timed
@@ -126,9 +142,10 @@ def _wrappers():
     from fibers_tpu_torch.ops.kernels.tv_fused import tv_fused
     from fibers_tpu_torch.ops.kernels.tv_stencil import tv_multiplier
     from fibers_tpu_torch.ops.kernels.tv_variants import tv_2slice, tv_dimsem
+    from fibers_tpu_torch.ops.kernels.propagate import propagate_dir
     return dict(gqi_fused=gqi_fused, tv_fused=tv_fused,
                 tv_multiplier=tv_multiplier, tv_dimsem=tv_dimsem,
-                tv_2slice=tv_2slice)
+                tv_2slice=tv_2slice, propagate_dir=propagate_dir)
 
 
 def reset_counts():
@@ -497,7 +514,8 @@ def phase_mesh_main(dwi, mask, seed, mesh, ref, back_ref, t_ref, d):
     read back).  Tolerances: FA within 1e-4 (C6's), the GQI ODF and QA
     bit-equal or within rtol 1e-4 / atol 2e-5 (tests/test_parallel.py's),
     peaks the same; the stream's npts equal and its points within 1e-6.
-    Returns gqi_fused's launches on this path."""
+    Returns the kernels' launches on this path: gqi_fused once per shard,
+    propagate_dir once per shard and direction of each chunk."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -514,10 +532,12 @@ def phase_mesh_main(dwi, mask, seed, mesh, ref, back_ref, t_ref, d):
         + ", ".join(f"{k}={v:.3f} s" for k, v in t_ref.items())
         + f"; launches {counts}; {guard.made} stream chunk launches under "
         "set_sync_debug_mode('error')")
+    nprop = stream_chunks(3 * int((seed.vol > 0).sum()), mesh.ndata)
     check(counts["gqi_fused"] == mesh.ndata
-          and sum(counts.values()) == mesh.ndata,
+          and counts["propagate_dir"] == nprop
+          and sum(counts.values()) == mesh.ndata + nprop,
           f"the sharded pipeline launched {counts}, not gqi_fused once per "
-          f"shard")
+          f"shard and propagate_dir {nprop} times")
     check(guard.made >= 1, "the sharded stream ran no guarded launch")
 
     m = mask.vol > 0
@@ -557,7 +577,7 @@ def phase_mesh_main(dwi, mask, seed, mesh, ref, back_ref, t_ref, d):
     check(tract.n_count == tract_r.n_count and same_n,
           "the sharded stream's line lengths differ from the unsharded")
     check(dpts <= 1e-6, f"the sharded stream's points differ by {dpts}")
-    return counts["gqi_fused"]
+    return counts
 
 
 # the i6 point wire's bound at bench.py's 0.5-voxel step: 2 * step / 31
@@ -597,11 +617,47 @@ class sink_seconds:
             setattr(TrkSink, name, fn)
 
 
+# the stream's chunk, and the floating-point operations of one active
+# step of a stream in the propagation kernel, counting sqrt and divide as
+# one each: the next position (6), one candidate (3 products, 2 sums,
+# abs, compare: 7 each), the sign flip (3), the angle (5), the smoothing
+# (6 products, 3 sums, the squares' 5, sqrt, clamp, 3 divides: 19); the
+# delta quantizer adds 3 differences, 3 products, 3 roundings, 6 clamps
+# and 3 double sums (18)
+CHUNK = 131_072
+PROP_FLOPS_STEP, PROP_FLOPS_CAND, PROP_FLOPS_DELTA = 33, 7, 18
+
+
+def stream_chunks(nseeds, shards=1):
+    """propagate_dir's launches for a stream of `nseeds` seeds: two
+    directions of each chunk, one launch per shard."""
+    return 2 * shards * -(-nseeds // CHUNK)
+
+
+class plain_loop:
+    """Inside the block, the stream's propagation runs the plain step
+    loop (`propagate_dir_plain`) on the card, as the port did before its
+    kernel: for timing beside the kernel, never in the port."""
+
+    def __enter__(self):
+        from fibers_tpu_torch.ops.kernels.propagate import \
+            propagate_dir_plain
+        from fibers_tpu_torch.tract import stream as stream_mod
+        self._real = stream_mod.propagate_dir
+        stream_mod.propagate_dir = propagate_dir_plain
+        return self
+
+    def __exit__(self, *exc):
+        from fibers_tpu_torch.tract import stream as stream_mod
+        stream_mod.propagate_dir = self._real
+
+
 def step_launches(work, seeds):
-    """Device launches and copies per propagation step of one chunk of
-    `seeds` voxels, each point wire: the profiler's CUDA events of
-    `propagate_chunk` at 32 steps less those at 16, over the 2 x 16 steps
-    of the two directions."""
+    """Device launches and copies of one chunk of `seeds` voxels, each
+    point wire: through the kernel, per chunk (the profiler's CUDA events
+    of one `propagate_chunk`); through the plain loop (`plain_loop`), per
+    step: the events at 2 steps less those at 1, over the 2 x 1 steps of
+    the two directions."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -610,26 +666,274 @@ def step_launches(work, seeds):
 
     subs = np.zeros_like(seeds)
     cos45 = float(np.cos(np.radians(45.0)))
-    out = {}
-    for emit, qscale, dmax in (("points", 254.0, 127),
-                               ("deltas", 31 / 0.5, 31)):
-        events = []
-        for nsteps in (16, 32):
-            propagate_chunk(seeds, subs, work.ovec_flat, work.shape3,
-                            nsteps, 0.5, cos45, 0.2, 1000, emit, qscale,
-                            dmax)
+
+    def events(nsteps, emit, qscale, dmax):
+        def run():
+            return propagate_chunk(seeds, subs, work.ovec_flat, work.shape3,
+                                   nsteps, 0.5, cos45, 0.2, 1000, emit,
+                                   qscale, dmax)
+
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                propagate_chunk(seeds, subs, work.ovec_flat, work.shape3,
-                                nsteps, 0.5, cos45, 0.2, 1000, emit, qscale,
-                                dmax)
-                torch.cuda.synchronize()
-            events.append(sum(e.count for e in prof.key_averages()
-                              if e.device_type == DeviceType.CUDA))
-        out["f32" if emit == "points" else "i6"] = \
-            (events[1] - events[0]) / 32
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+
+    out = {}
+    for wire, emit, qscale, dmax in (("f32", "points", 254.0, 127),
+                                     ("i6", "deltas", 31 / 0.5, 31)):
+        kernel = events(2, emit, qscale, dmax)
+        with plain_loop():
+            per_step = (events(2, emit, qscale, dmax)
+                        - events(1, emit, qscale, dmax)) / 2
+        out[wire] = dict(kernel_chunk=kernel, plain_step=per_step)
     return out
+
+
+def graph_ms(fn, reps):
+    """Device time of a CUDA-graph replay of `fn()` (captured once after
+    a warm call on a side stream), and the captured outputs after one
+    replay."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(g.replay, reps), out, g
+
+
+def _same_bits(a, b):
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _max_err(outs, refs):
+    return max(float((a.float() - b.float()).abs().max()) if a.numel()
+               else 0.0 for a, b in zip(outs, refs))
+
+
+def stream_seeds(work, seed):
+    """The seeds of `stream()` on `work`: each voxel of `seed` with the
+    nsub jitters of `seed_rng` (tract/stream.py:stream)."""
+    import numpy as np
+    from fibers_tpu_torch.tract.stream import _seed_voxels
+    from fibers_tpu_torch.utils.prng import prng_key, uniform
+    vox = _seed_voxels(work.mask_array, seed).astype(np.float32)
+    subs = uniform(prng_key(work.cfg.seed_rng), (work.nsub, 3),
+                   -0.5 + 1e-6, 0.5 - 1e-6)
+    return np.repeat(vox, len(subs), axis=0), np.tile(subs, (len(vox), 1))
+
+
+def propagate_args(work, wire):
+    """propagate_dir's arguments after the field as `stream()` passes
+    them on `work` with the point wire `wire`."""
+    import numpy as np
+    from fibers_tpu_torch.tract.stream import _wire_mode
+    work.cfg.wire = wire
+    _, emit, qscale, dmax = _wire_mode(work.cfg, work.step_size)
+    return (int(work.len_max) + 2, work.shape3, float(work.step_size),
+            float(np.cos(np.radians(work.ang_thresh))),
+            float(work.smooth_coeff), int(work.len_max), emit, qscale, dmax)
+
+
+def phase_sum3():
+    """[propagate] The propagation kernel's sum of three products against
+    torch's `Tensor.sum` on the card, and torch's sum against the three
+    orders of a sum of three terms."""
+    import torch
+    from fibers_tpu_torch.ops.kernels.propagate import sum3_selfcheck
+    t0 = time.time()
+    mism = sum3_selfcheck()
+    n = 1 << 22
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = torch.randn((n, 3), generator=g, device="cuda") * torch.exp2(
+        torch.randint(-20, 21, (n, 3), generator=g, device="cuda").float())
+    p0, p1, p2 = p.unbind(-1)
+    total = p.sum(dim=-1)
+    orders = {"(p0 + p2) + p1": (p0 + p2) + p1,
+              "(p0 + p1) + p2": (p0 + p1) + p2,
+              "p0 + (p1 + p2)": p0 + (p1 + p2)}
+    log(f"[propagate] self-check of the kernel's sum of three products "
+        f"((0 + p0) + (0 + p2)) + (0 + p1) against torch's (a * b).sum(-1) "
+        f"on the card, 2^22 [3] rows and [2^20, 4, 3] candidates: {mism} "
+        f"mismatches; torch's sum of 2^22 [3] rows against the orders: "
+        + ", ".join(f"{k} {int((total != v).sum())} differ"
+                    for k, v in orders.items())
+        + f" ({time.time() - t0:.2f} s)")
+    check(mism == 0, "the propagation kernel sums three products in "
+          "another order than torch on the card")
+
+
+class visited_voxels:
+    """Inside the block, the plain loop counts in `hits` [nvox] the
+    in-bounds voxels it gathers (its `_flat_index`).  A stopped stream
+    keeps its position and direction, so it gathers again the voxel of
+    its last active step: the voxels hit are those the kernel reads."""
+
+    def __init__(self, nvox, device):
+        import torch
+        self.hits = torch.zeros(nvox, dtype=torch.int32, device=device)
+
+    def __enter__(self):
+        import torch
+        from fibers_tpu_torch.ops.kernels import propagate as prop_mod
+        self._real = real = prop_mod._flat_index
+        hits = self.hits
+
+        def counted(ipos, shape3):
+            flat, inb = real(ipos, shape3)
+            hits.index_add_(0, flat.reshape(-1),
+                            inb.reshape(-1).to(torch.int32))
+            return flat, inb
+
+        prop_mod._flat_index = counted
+        return self
+
+    def __exit__(self, *exc):
+        from fibers_tpu_torch.ops.kernels import propagate as prop_mod
+        prop_mod._flat_index = self._real
+
+
+def phase_propagate(name, work, seed):
+    """[propagate] The first chunk (CHUNK seeds) of `work`'s stream from
+    `seed`, f32 and i6: the kernel against the plain loop on both
+    directions, bit for bit on the four outputs of each; then the forward
+    direction timed with CUDA events in turns plain / kernel / kernel /
+    plain, and a CUDA-graph replay of the plain loop's direction (its
+    outputs checked too), beside the bound of the direction's bytes and
+    operations.  The bytes count the field's voxels the direction visits
+    (`visited_voxels`), not the whole field; the operations its active
+    stream-steps.  Returns {wire: record}."""
+    import torch
+    from fibers_tpu_torch.ops.kernels.propagate import (propagate_dir,
+                                                        propagate_dir_plain)
+    from fibers_tpu_torch.tract.stream import _seed_state
+
+    t0 = time.time()
+    seeds, subs = stream_seeds(work, seed)
+    ov = work.ovec_flat
+    pos0, v0 = _seed_state(seeds[:CHUNK], subs[:CHUNK], ov, work.shape3)
+    neg = -v0
+    zero = torch.zeros(len(pos0), dtype=torch.int32, device=pos0.device)
+    nvec = ov.shape[1]
+    records = {}
+    for wire in ("f32", "i6"):
+        args = propagate_args(work, wire)
+        nsteps = args[0]
+        fwd = propagate_dir(pos0, v0, zero, ov, *args)
+        bwd = propagate_dir(pos0, neg, fwd[2], ov, *args)
+        torch.cuda.synchronize()
+        with visited_voxels(ov.shape[0], ov.device) as seen:
+            fwd_p = propagate_dir_plain(pos0, v0, zero, ov, *args)
+        if wire == "f32":
+            # the quantizer does not steer: both wires visit the same
+            # voxels in the same steps.  A stream is active at step t + 1
+            # exactly when it advanced at step t.
+            nvisit = int((seen.hits > 0).sum())
+            moved = (fwd_p[0][1:] != fwd_p[0][:-1]).any(dim=-1)
+            steps = len(pos0) + int(moved.sum())
+            del moved
+        del seen
+        bwd_p = propagate_dir_plain(pos0, neg, fwd_p[2], ov, *args)
+        same = [_same_bits(a, b) for a, b in zip(fwd + bwd, fwd_p + bwd_p)]
+        err = _max_err(fwd + bwd, fwd_p + bwd_p)
+        check(all(same), f"{name} {wire}: the kernel differs from the plain "
+              f"loop (outputs out, saved, npts, anchor of both directions "
+              f"equal: {same}; max|d| {err})")
+        del bwd, fwd_p, bwd_p
+
+        def kern():
+            return propagate_dir(pos0, v0, zero, ov, *args)
+
+        def plain():
+            return propagate_dir_plain(pos0, v0, zero, ov, *args)
+
+        kern()
+        plain()
+        torch.cuda.synchronize()
+        turns = [cuda_ms(plain, 3), cuda_ms(kern, 20), cuda_ms(kern, 20),
+                 cuda_ms(plain, 3)]
+        g_ms, g_out, graph = graph_ms(plain, 10)
+        g_same = all(_same_bits(a, b) for a, b in zip(g_out, fwd))
+        del graph, g_out
+        check(g_same, f"{name} {wire}: the graph replay of the plain loop "
+              "differs from the kernel")
+        field_bytes = nvisit * nvec * 3 * ov.element_size()
+        nbytes = (pos0.nbytes + v0.nbytes + zero.nbytes + field_bytes
+                  + sum(t.nbytes for t in fwd))
+        flops = steps * (PROP_FLOPS_STEP + nvec * PROP_FLOPS_CAND
+                         + (PROP_FLOPS_DELTA if wire == "i6" else 0))
+        whole = bound_ms(nbytes - field_bytes + ov.nbytes, flops)
+        rec = dict(max_abs_err=err, ms=(turns[1] + turns[2]) / 2,
+                   plain_ms=(turns[0] + turns[3]) / 2, graph_ms=g_ms,
+                   streams=len(pos0), nsteps=nsteps, nvec=nvec,
+                   active_steps=steps, voxels_visited=nvisit,
+                   voxels=ov.shape[0], nbytes=nbytes,
+                   bound_ms_whole_field=whole["bound_ms"],
+                   **bound_ms(nbytes, flops))
+        records[wire] = rec
+        log(f"[propagate] {name} {wire}: {len(pos0)} streams x {nsteps} "
+            f"steps, nvec {nvec}: kernel bit-equal to the plain loop on "
+            f"both directions; one direction: kernel {rec['ms']:.3f} ms, "
+            f"plain loop {rec['plain_ms']:.3f} ms, its CUDA-graph replay "
+            f"{g_ms:.3f} ms (turns plain, kernel, kernel, plain: "
+            f"{', '.join(f'{t:.3f}' for t in turns)}); bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({nbytes / 1e6:.1f} MB with {nvisit} of the field's "
+            f"{ov.shape[0]} voxels visited, {field_bytes / 1e6:.1f} of "
+            f"{ov.nbytes / 1e6:.1f} MB; {flops / 1e9:.3f} GFLOP over {steps} "
+            f"active stream-steps), share "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}%; reading the whole "
+            f"field {whole['bound_ms']:.4f} ms, share "
+            f"{100 * whole['bound_ms'] / rec['ms']:.1f}%")
+        del fwd
+        torch.cuda.empty_cache()
+    log(f"[propagate] {name}: phase {time.time() - t0:.1f} s")
+    return records
+
+
+def kernel_vs_plain(name, run, d):
+    """stream + write of `run(trk)` through the kernel, through the plain
+    loop (`plain_loop`), and through the kernel again, each ending in a
+    synchronize; the plain and second kernel .trk files against the
+    first, byte for byte.  Returns (kernel seconds, both runs; plain
+    seconds; the kernels' launches in the first run)."""
+    import torch
+    times, paths = [], []
+    for i, plain in enumerate((False, True, False)):
+        trk = os.path.join(d, f"{name}_{i}.trk")
+        reset_counts()
+        t0 = time.time()
+        with plain_loop() if plain else contextlib.nullcontext():
+            run(trk)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        if i == 0:
+            counts = read_counts()
+        paths.append(trk)
+    equal = [filecmp.cmp(paths[0], p, shallow=False) for p in paths[1:]]
+    for p in paths:
+        os.remove(p)
+    log(f"[propagate] {name} stream+write: kernel {times[0]:.3f} / "
+        f"{times[2]:.3f} s, plain loop {times[1]:.3f} s; .trk of the plain "
+        f"loop {'byte-equal' if equal[0] else 'DIFFERS'}, of the kernel's "
+        f"second run {'byte-equal' if equal[1] else 'DIFFERS'}; launches "
+        f"{counts}")
+    check(all(equal), f"{name}: the .trk through the kernel differs from "
+          "the plain loop's")
+    return (times[0], times[2]), times[1], counts
 
 
 def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
@@ -645,7 +949,8 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
     stream count within 0.5% (a u12 fit may move a peak or an FA
     threshold); and its i6 stream against an f32 stream of the same
     peaks: equal stream count and npts, .trk points within 2 * step / 31.
-    gqi_fused launches once.  Returns its launches."""
+    gqi_fused launches once, propagate_dir twice a chunk.  Returns the
+    kernels' launches."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -660,8 +965,11 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
         dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk,
                                       wire="u12", point_wire="i6")
     counts = read_counts()
-    check(counts["gqi_fused"] == 1 and sum(counts.values()) == 1,
-          f"the u12/i6 pipeline launched {counts}, not gqi_fused once")
+    nprop = stream_chunks(3 * int((seed.vol > 0).sum()))
+    check(counts["gqi_fused"] == 1 and counts["propagate_dir"] == nprop
+          and sum(counts.values()) == 1 + nprop,
+          f"the u12/i6 pipeline launched {counts}, not gqi_fused once and "
+          f"propagate_dir {nprop} times")
     check(guard.made >= 1, "the i6 stream ran no guarded launch")
     check(sk.fused >= 1, "the i6 stream did not take the fused .trk decode")
 
@@ -693,8 +1001,8 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
 
     work = StreamWork(pk1, fa=dti.fa, mask=mask, nsub=3, f_thresh=0.0)
     vox = np.argwhere(work.mask_array)
-    per_step = step_launches(work, vox[::max(1, len(vox) // 131_072)]
-                             [:131_072].astype(np.float32))
+    per_step = step_launches(work, vox[::max(1, len(vox) // CHUNK)]
+                             [:CHUNK].astype(np.float32))
 
     log("[wire] pipeline u12 + i6 (bench.py:240-261): " + ", ".join(
         f"{k}={v:.3f} s" for k, v in t.items()) + "; f32 run 2: "
@@ -706,9 +1014,12 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
         f"decode into records, {sk.fused} calls; f32: record packing) i6 "
         f"{sk.seconds:.3f} s against f32 {sink_ref:.3f} s (run 2) and "
         f"{sk_f.seconds:.3f} s (the same peaks)")
-    log(f"[wire] device launches and copies per propagation step of a "
-        f"{min(len(vox), 131_072)}-seed chunk: f32 {per_step['f32']:.2f}, "
-        f"i6 {per_step['i6']:.2f}")
+    log(f"[wire] device launches and copies of a {min(len(vox), CHUNK)}-"
+        f"seed chunk's propagation: through the kernel f32 "
+        f"{per_step['f32']['kernel_chunk']} and i6 "
+        f"{per_step['i6']['kernel_chunk']} a chunk; through the plain loop "
+        f"f32 {per_step['f32']['plain_step']:.2f} and i6 "
+        f"{per_step['i6']['plain_step']:.2f} a step")
     log(f"[wire] u12 against f32: |dFA| median {dfa50:.3g}, 90th "
         f"percentile {dfa90:.3g}, 99th {dfa99:.3g}, max {dfa:.3g} "
         f"({100 * float((dfa_all > 1e-3).mean()):.2f}% of voxels over "
@@ -726,13 +1037,14 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
     check(tract.n_count == tract_f.n_count and same_n,
           "the i6 stream's line lengths differ from the f32 stream's")
     check(dpts <= I6_BOUND, f"i6 points differ by {dpts} > {I6_BOUND}")
-    return counts["gqi_fused"]
+    return counts, per_step
 
 
 def phase_main(mesh):
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
+    from fibers_tpu_torch.tract.stream import StreamWork
     from fibers_tpu_torch.utils.phantom import make_brain
 
     phase_nosync()
@@ -754,11 +1066,21 @@ def phase_main(mesh):
             dti, gqi, tract, t = pipeline(dwi, mask, seed, "cuda", trk)
         counts = read_counts()
         back = tt.trk_read(trk)
+        phase_sum3()
+        pk1 = tt.peaks_to_ovecs(gqi, device=True).first(1)
+        work = StreamWork(pk1, fa=dti.fa, mask=mask, nsub=3, f_thresh=0.0)
+        prop = phase_propagate("main path", work, seed)
+        del work
+        prop["stream_write"] = kernel_vs_plain(
+            "main path", lambda trk_: tt.stream(
+                pk1, fa=dti.fa, mask=mask, seed=seed, nsub=3, f_thresh=0.0,
+                wire="f32", trk_sink=trk_), d)
         mesh_launches = phase_mesh_main(dwi, mask, seed, mesh,
                                         (dti, gqi, tract), back, t, d)
         wire_launches = phase_wire_main(dwi, mask, seed, (dti, gqi, tract),
                                         t, sk.seconds, d)
     launches = counts["gqi_fused"]
+    nprop = stream_chunks(3 * int((seed.vol > 0).sum()))
     npts = int(np.sum(tract.npts))
     for name, tt_ in (("run 1", t_warm), ("run 2", t)):
         log(f"[main] {name}: " + ", ".join(f"{k}={v:.3f} s"
@@ -766,14 +1088,16 @@ def phase_main(mesh):
     split = gqi_split(dwi, mask)
     log("[main] GQI stage replayed: " + ", ".join(
         f"{k} {1e3 * v:.3f} ms" for k, v in split.items()))
-    log(f"[main] streams={tract.n_count} points={npts} "
-        f"gqi_fused.launches={launches} "
+    log(f"[main] streams={tract.n_count} points={npts} launches {counts} "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         f" GiB")
 
-    check(launches >= 1, "the GQI stage did not launch the CUDA kernel")
-    check(sum(counts.values()) == launches,
-          f"the GQI path launched other kernels: {counts}")
+    check(launches == 1, "the GQI stage did not launch its kernel once")
+    check(counts["propagate_dir"] == nprop,
+          f"the stream launched propagate_dir {counts['propagate_dir']} "
+          f"times, not twice for each of its chunks ({nprop})")
+    check(sum(counts.values()) == launches + nprop,
+          f"the main path launched other kernels: {counts}")
     fa = dti.fa.vol[m]
     check(np.isfinite(fa).all(), "FA is not finite inside the mask")
     check(tract.n_count > 0, "no streamlines")
@@ -787,7 +1111,7 @@ def phase_main(mesh):
     log(f"[main] peak 1 vs true axis outside the crossing slab: median "
         f"|cos|={np.median(cos):.4f} over {int(single.sum())} voxels")
     check(np.median(cos) > 0.9, "GQI peak 1 does not follow the true axis")
-    return launches, mesh_launches, wire_launches
+    return counts, mesh_launches, wire_launches, prop
 
 
 def phase_small():
@@ -1031,13 +1355,16 @@ def phase_tv(mask):
 
 def phase_rumba(dwi, mask, ax, mesh):
     """Config 4 at full width on the card: RUMBA-SD, 600 iterations,
-    chained into ~1M streams written to a .trk; then a tv_bf16 run and
-    the mesh run (`phase_mesh_rumba`).  The warm run and the 50- and
-    20-iteration runs take a prepared batch, which skips the host signal
+    chained into ~1M streams written to a .trk (i6, then f32 through the
+    kernel beside the plain loop, and its `[propagate]` chunk); then a
+    tv_bf16 run and the mesh run (`phase_mesh_rumba`).  The warm run and
+    the 50- and 20-iteration runs take a prepared batch, which skips the
+    host signal
     route the counted run times."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
+    from fibers_tpu_torch.tract.stream import StreamWork
 
     m = mask.vol > 0
     nmask = int(m.sum())
@@ -1097,10 +1424,26 @@ def phase_rumba(dwi, mask, ax, mesh):
         run = {}
         for pw in ("i6", "f32"):
             trk = os.path.join(d, f"rumba_{pw}.trk")
+            reset_counts()
             t1 = time.time()
             tract = tt.stream(pk, mask=mask, seed=seed, nsub=3, wire=pw,
                               trk_sink=trk)
             run[pw] = (tract, time.time() - t1, tt.trk_read(trk))
+            if pw == "i6":
+                chain_counts = read_counts()
+            os.remove(trk)
+        work = StreamWork(pk, mask=mask, nsub=3)
+        prop = phase_propagate("RUMBA chain", work, seed)
+        del work
+        prop["stream_write"] = kernel_vs_plain(
+            "RUMBA chain f32", lambda trk_: tt.stream(
+                pk, mask=mask, seed=seed, nsub=3, wire="f32",
+                trk_sink=trk_), d)
+    nprop = stream_chunks(3 * int((seed.vol > 0).sum()))
+    check(chain_counts["propagate_dir"] == nprop
+          and sum(chain_counts.values()) == nprop,
+          f"the RUMBA chain's stream launched {chain_counts}, not "
+          f"propagate_dir {nprop} times")
     (tract, t_stream, back), (tract_f, t_f, back_f) = run["i6"], run["f32"]
     npts = int(np.sum(tract.npts))
     same_n = np.array_equal(np.asarray(back.npts), np.asarray(back_f.npts))
@@ -1108,7 +1451,7 @@ def phase_rumba(dwi, mask, ax, mesh):
         if same_n else float("inf")
     log(f"[rumba] chain: {int((seed.vol > 0).sum())} seed voxels, nsub=3, "
         f"{pk.nvec} peaks: stream+write i6 {t_stream:.3f} s, "
-        f"{tract.n_count} streams, {npts} points")
+        f"{tract.n_count} streams, {npts} points; launches {chain_counts}")
     log(f"[wire] RUMBA chain stream+write i6 {t_stream:.3f} s against f32 "
         f"{t_f:.3f} s on the same peaks; streams {tract.n_count} / "
         f"{tract_f.n_count}, npts {'equal' if same_n else 'differ'}, "
@@ -1149,7 +1492,7 @@ def phase_rumba(dwi, mask, ax, mesh):
     torch.testing.assert_close(fb, ff, rtol=0.05, atol=2e-3)
     del b16, f32, fb, ff
     counts_mesh = phase_mesh_rumba(dwi, mask, mesh, batch, nmask)
-    return counts, counts_b16, counts_mesh
+    return counts, counts_b16, counts_mesh, chain_counts, prop
 
 
 class signal_spy:
@@ -1305,7 +1648,8 @@ def phase_mesh_step(mesh, n=131_072):
     row outputs within tests/test_parallel.py's tolerances (FA, ODF, QA,
     peaks rtol 1e-4 / atol 2e-5; fODF, sigma^2, lambda rtol 1e-4 / atol
     1e-6), npts equal, points within 1e-6.  Returns the mesh run's
-    launches: gqi_fused once per shard, tv_multiplier once per device."""
+    launches: gqi_fused once per shard, tv_multiplier once per device,
+    propagate_dir once per shard (one direction)."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -1373,17 +1717,19 @@ def phase_mesh_step(mesh, n=131_072):
         f"(launches {c_one}), mesh {1e3 * t_sh:.1f} ms (launches {c_sh}); "
         + ", ".join(errs))
     check(c_one["gqi_fused"] == 1 and c_one["tv_fused"] == 1
-          and sum(c_one.values()) == 2, f"one-device step launched {c_one}")
+          and c_one["propagate_dir"] == 1 and sum(c_one.values()) == 3,
+          f"one-device step launched {c_one}")
     check(c_sh["gqi_fused"] == mesh.ndata
           and c_sh["tv_multiplier"] == mesh.size
-          and sum(c_sh.values()) == mesh.ndata + mesh.size,
+          and c_sh["propagate_dir"] == mesh.ndata
+          and sum(c_sh.values()) == 2 * mesh.ndata + mesh.size,
           f"the mesh step launched {c_sh}")
     return c_sh
 
 
 def _check_no_kernel(counts, what):
-    """The DSI, structure-tensor and LCM/micro paths run none of the five
-    kernels: their launch counts stay 0."""
+    """The DSI fit, the structure tensor and the LCM/micro modes run none
+    of the kernels: their launch counts stay 0."""
     check(not any(counts.values()), f"{what} launched kernels: {counts}")
 
 
@@ -1477,19 +1823,32 @@ def phase_dsi(mesh):
     seed = _seed_mask(mask, 1_000_000)
     with tempfile.TemporaryDirectory() as d:
         trk = os.path.join(d, "dsi.trk")
+        reset_counts()
         t1 = time.time()
         pkd = tt.peaks_to_ovecs(dsi, device=True)
         tract = tt.stream(pkd, mask=mask, seed=seed, nsub=3, wire="f32",
                           trk_sink=trk)
         t_stream = time.time() - t1
+        chain_counts = read_counts()
         back = tt.trk_read(trk)
+        os.remove(trk)
+        stream_write = kernel_vs_plain(
+            "DSI chain", lambda trk_: tt.stream(
+                pkd, mask=mask, seed=seed, nsub=3, wire="f32",
+                trk_sink=trk_), d)
     npts = int(np.sum(tract.npts))
+    nprop = stream_chunks(3 * int((seed.vol > 0).sum()))
     log(f"[dsi] chain: {int((seed.vol > 0).sum())} seed voxels, nsub=3, "
         f"{pkd.nvec} peaks: stream+write {t_stream:.3f} s, "
-        f"{tract.n_count} streams, {npts} points")
+        f"{tract.n_count} streams, {npts} points; launches {chain_counts}")
     check(tract.n_count > 0, "no streamlines from the DSI peaks")
     check(back.n_count == tract.n_count and int(np.sum(back.npts)) == npts,
           f".trk holds {back.n_count} lines, the Tract {tract.n_count}")
+    check(chain_counts["propagate_dir"] == nprop
+          and sum(chain_counts.values()) == nprop,
+          f"the DSI chain's stream launched {chain_counts}, not "
+          f"propagate_dir {nprop} times")
+    return chain_counts, stream_write
 
 
 def phase_structens(vol, mesh):
@@ -1718,12 +2077,14 @@ def main():
     mesh, kind = smoke_mesh()
     log(f"[mesh] the mesh phases run on {kind}")
     records = {"gqi_fused": phase_kernel()}
-    main_launches, mesh_main, wire_main = phase_main(mesh)
-    launches = {"gqi_fused": main_launches}
+    main_counts, mesh_main, (wire_main, per_step), prop = phase_main(mesh)
+    launches = dict(main_counts)
     # launches of each kernel on the quantized-wire paths, by path
-    wire_launches = {"pipeline_u12_i6": {"gqi_fused": wire_main}}
+    wire_launches = {"pipeline_u12_i6": wire_main}
     # launches of each kernel on the mesh paths, by path
-    mesh_launches = {"pipeline": {"gqi_fused": mesh_main}}
+    mesh_launches = {"pipeline": mesh_main}
+    # the propagation kernel's launches on each stream, by path
+    stream_launches = {"pipeline": main_counts["propagate_dir"]}
     phase_small()
 
     t1 = time.time()
@@ -1731,7 +2092,9 @@ def main():
     log(f"[rumba] set-up: phantom {dwi.vol.shape} built in "
         f"{time.time() - t1:.1f} s")
     records.update(phase_tv(mask))
-    counts, counts_b16, counts_mesh = phase_rumba(dwi, mask, ax, mesh)
+    counts, counts_b16, counts_mesh, chain, prop_r = phase_rumba(
+        dwi, mask, ax, mesh)
+    stream_launches["rumba_chain_i6"] = chain["propagate_dir"]
     mesh_launches["rumba"] = counts_mesh
     # the 600-iteration fit builds its signal on the default u12 wire
     wire_launches["rumba_u12"] = counts
@@ -1741,12 +2104,14 @@ def main():
     launches["tv_multiplier"] = counts_b16["tv_multiplier"]
     phase_rumba_small()
 
-    # the paths with no hand-written kernel: DSI, the structure tensor,
-    # the LCM and micro modes, the CLI
+    # the paths with no hand-written kernel but the DSI chain's
+    # propagation: DSI, the structure tensor, the LCM and micro modes, the
+    # CLI
     t1 = time.time()
     phase_structens(mean_dwi, mesh)
     del mean_dwi
-    phase_dsi(mesh)
+    dsi_chain, dsi_sw = phase_dsi(mesh)
+    stream_launches["dsi_chain"] = dsi_chain["propagate_dir"]
     phase_modes()
     dsi_small = phase_new_small()
     phase_cli(dsi_small)
@@ -1758,7 +2123,19 @@ def main():
     check(not any(m == "fibers_tpu" or m.startswith("fibers_tpu.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] {time.time() - t0:.1f} s")
-    # no single PyTorch call computes any of the five functions; gqi_fused
+    # the propagation kernel's record: the main path's f32 chunk, its i6
+    # chunk, the RUMBA chain's chunks, stream + write of the three chains
+    # (kernel runs, plain loop) and the launches per chunk and step
+    main_sw = prop.pop("stream_write")
+    rumba_sw = prop_r.pop("stream_write")
+    records["propagate_dir"] = dict(
+        prop["f32"], i6=prop["i6"], rumba_chain=prop_r,
+        library_call="none: no PyTorch call integrates streamlines",
+        stream_launches_by_path=stream_launches,
+        launches_per_chunk_and_step=per_step,
+        stream_write_s={"pipeline": main_sw[:2], "rumba_chain_f32":
+                        rumba_sw[:2], "dsi_chain": dsi_sw[:2]})
+    # no single PyTorch call computes any of the six functions; gqi_fused
     # carries the product alone as its partial yardstick
     kernels = []
     for name, src, site, on_path in KERNELS:

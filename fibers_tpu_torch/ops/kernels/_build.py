@@ -142,6 +142,12 @@ def _declare(lib):
         fn.restype = ci
     lib.tv_sweep_blocks_per_sm.argtypes = [ci]
     lib.tv_sweep_blocks_per_sm.restype = ci
+    cf = ctypes.c_float
+    lib.propagate_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cf] * 4
+                                     + [ci] * 3 + [cf] * 3 + [vp] * 5)
+    lib.propagate_launch.restype = ci
+    lib.propagate_sum3_selfcheck.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.propagate_sum3_selfcheck.restype = ci
 
 
 def load_library():

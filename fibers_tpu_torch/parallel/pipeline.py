@@ -19,9 +19,9 @@ from ..models.dti import _design_dti, _masked_wls, dti_maps
 from ..models.gqi import _gqi_kernel_fused, _gqi_sharded, gqi_design
 from ..models.rumba import _MeshTV, _build_kernel, _tv_term, besseli_ratio
 from ..ops.eig3 import eigh3
+from ..ops.kernels.propagate import propagate_dir
 from ..ops.kernels.tv_fused import build_tables
 from ..ops.peaks import build_neighbors
-from ..tract.stream import _propagate_many
 from .mesh import (ShardedRows, _move, as_mesh, map_shards, put_batch,
                    replicate, shard_sum)
 
@@ -150,7 +150,8 @@ def full_recon_step(signals, rumba_signal, fodf, sig2, lam_flat, tv_idx,
         sets = [(p, v, torch.zeros(p.shape[0], dtype=torch.int32,
                                    device=p.device), ov[p.device])
                 for (_, p), (_, v) in zip(seeds.local(), seed_vecs.local())]
-    out = _propagate_many(sets, 8, tuple(shape3), 0.5, cos45, 0.2, 64)
+    out = [propagate_dir(*st, 8, tuple(shape3), 0.5, cos45, 0.2, 64)
+           for st in sets]
     pts = torch.cat([_move(o[0], dev) for o in out], dim=1)
     if mesh is None:
         npts = out[0][2]

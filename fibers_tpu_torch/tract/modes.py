@@ -23,7 +23,8 @@ leave the delta range; otherwise an explicit i8/i6 warns and the points
 go as float32, as in the reference.
 
 Both engines emit the point wire of `stream._wire_mode`: float32 points
-or error-feedback deltas (`stream._quantize_step`).
+or error-feedback deltas (`ops/kernels/propagate.py:_quantize_step`).
+They keep their step loops of torch operations on the card too.
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ import numpy as np
 import torch
 
 from ..io.trk import Tract
+from ..ops.kernels.propagate import (_flat_index, _pick_by_angle,
+                                     _quantize_step, _smooth_dir)
 from ..utils.prng import prng_key, split, uniform
-from .stream import (_drive, _flat_index, _pick_by_angle, _quantize_step,
-                     _seed_state, _seed_voxels, _smooth_dir)
+from .stream import _drive, _seed_state, _seed_voxels
 
 __all__ = ["stream_lcm", "stream_micro"]
 
@@ -71,7 +73,7 @@ def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
     dimensions.  Returns (out [nsteps, S, 3] positions, or int8 deltas
     with emit="deltas", saved [nsteps, S], flags [nsteps, S] int8
     method-difference flags, npts [S], anchor [S, 3]), as
-    `stream._propagate_many`."""
+    `propagate_dir`."""
     dev = pos0.device
     s = pos0.shape[0]
     jumps = dxyz.T.to(torch.float32)                     # [4, 3]
@@ -288,7 +290,7 @@ def _propagate_micro(pos0, vec0, npts0, mask_flat, vec_first, win_off,
     in-mask, in-cone voxel whose first vector is best aligned.
     `vec_first` is the [nxyz, 3] first orientation vector per voxel.
     Returns (out [nsteps, S, 3] positions or int8 deltas, saved
-    [nsteps, S], npts [S], anchor [S, 3]), as `stream._propagate_many`."""
+    [nsteps, S], npts [S], anchor [S, 3]), as `propagate_dir`."""
     dev = pos0.device
     s = pos0.shape[0]
     deltas = emit == "deltas"

@@ -6,12 +6,14 @@ Counterpart of the deterministic engine of fibers_tpu/tract/stream.py
 chunk advance together: each step is a batched voxel gather, the greedy
 minimum-bending-angle vector choice with sign flip, and a masked state
 update; termination is a monotone active mask, so the saved points of a
-stream form a prefix of the step axis.  `lax.scan` becomes a Python loop
-over the steps.
+stream form a prefix of the step axis.  The `lax.scan` of one direction
+becomes one launch of a hand-written CUDA kernel on the card, a Python
+loop over the steps on the CPU (ops/kernels/propagate.py).
 
 JAX clamps out-of-range gather indices and torch does not, so every
-gather here goes through an index that `_flat_index` has already pointed
-at a valid voxel (its `inb` flag stops the stream).
+gather goes through an index that has already been pointed at a valid
+voxel (`_flat_index`, or the kernel's own bounds test; its `inb` flag
+stops the stream).
 
 The driver is one loop over seed chunks: propagate, compact the kept
 lines on the device into their final point order, copy them to pinned
@@ -45,6 +47,7 @@ from ..core.handoff import DevicePeaks
 from ..core.mri import MRI
 from ..device import resolve, upload
 from ..io.trk import Tract, TrkSink
+from ..ops.kernels.propagate import _flat_index, propagate_dir
 from ..parallel.mesh import as_mesh, as_tensor, pad_to_multiple
 from ..utils.hostbuf import scratch
 from ..utils.prng import prng_key, uniform
@@ -127,135 +130,13 @@ class StreamConfig:
 # Propagation
 # ------------------------------------------------------------------ #
 
-def _flat_index(ipos, shape3):
-    """Flat voxel index of integer positions [..., 3], pointed at voxel 0
-    where out of bounds, and the in-bounds flag."""
-    nx, ny, nz = shape3
-    ix, iy, iz = ipos.unbind(-1)
-    inb = ((ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
-           & (iz >= 0) & (iz < nz))
-    flat = (ix * ny + iy) * nz + iz
-    return torch.where(inb, flat, torch.zeros_like(flat)), inb
-
-
-def _pick_by_angle(vec_now, vecs):
-    """Greedy choice among candidate vectors [S, nvec, 3]: max |cos| to the
-    current direction, sign-flipped to align.  Returns (vnext, ok, ivec).
-    (reference: src/stream.jl:340-374)"""
-    cos = (vecs * vec_now[:, None, :]).sum(dim=2)
-    iszero = (vecs == 0).all(dim=2)
-    cos = torch.where(iszero, -torch.inf, cos)
-    cabs = torch.where(iszero, -torch.inf, cos.abs())
-    ivec = torch.argmax(cabs, dim=1)
-    c = torch.gather(cos, 1, ivec[:, None])[:, 0]
-    v = torch.gather(vecs, 1, ivec[:, None, None].expand(-1, 1, 3))[:, 0, :]
-    ok = torch.isfinite(c)
-    vnext = torch.where((c > 0)[:, None], v, -v)
-    return vnext, ok, ivec
-
-
-def _smooth_dir(vec, vnext, smooth_coeff):
-    """EMA smoothing of the next direction, renormalised (reference:
-    src/stream.jl:672-677)."""
-    if smooth_coeff == 0.0:
-        return vnext
-    vsm = smooth_coeff * vec + (1.0 - smooth_coeff) * vnext
-    return vsm / torch.clamp_min(
-        torch.sqrt((vsm * vsm).sum(dim=1, keepdim=True)), 1e-20)
-
-
-def _propagate_many(sets, nsteps, shape3, step_size, cosang_thresh,
-                    smooth_coeff, len_max, emit="points", qscale=254.0,
-                    dmax=127):
-    """Lockstep propagation of one direction for the S streams of each
-    set (pos0, vec0, npts0, ovecs_flat): one set per seed shard, each on
-    its field's device.  One Python loop over the steps launches every
-    set's step in turn, so the devices of a mesh work at once and only the
-    host's launches per step grow with the shard count.
-
-    Masking is baked into the orientation vectors: every vector outside
-    the mask is zero, so an out-of-mask voxel has no candidate and stops
-    the stream.  `npts0` carries the running per-line point count (the
-    forward pass's when propagating backward), so both directions share
-    the reference's single length budget (reference: src/stream.jl:
-    648-686).
-
-    emit="points": out is the saved float32 positions.  emit="deltas":
-    out is the int8 error-feedback step deltas at 1/qscale voxel, clipped
-    to [-dmax, dmax]: the quantizer carries the decoded position, so the
-    error is bounded at every point (fibers_tpu/tract/stream.py:
-    _propagate).
-
-    Returns one (out [nsteps, S, 3], saved [nsteps, S], npts_total [S],
-    anchor [S, 3]) per set; `anchor` is the quantized chain's final
-    position, the line's most distal point for the delta decode (the
-    start position with emit="points")."""
-    deltas = emit == "deltas"
-    state = []
-    for pos0, vec0, npts0, ov in sets:
-        s, dev = pos0.shape[0], pos0.device
-        state.append(dict(
-            ov=ov, pos=pos0, vec=vec0, npts=npts0, pos_q=pos0,
-            active=torch.ones(s, dtype=torch.bool, device=dev),
-            outs=torch.empty((nsteps, s, 3), device=dev,
-                             dtype=torch.int8 if deltas else pos0.dtype),
-            saved=torch.empty((nsteps, s), dtype=torch.bool, device=dev)))
-    for t in range(nsteps):
-        for st in state:
-            pos, vec = st["pos"], st["vec"]
-            pos_next = pos + vec * step_size
-            flat, inb = _flat_index(torch.round(pos_next).to(torch.int64),
-                                    shape3)
-            vnext, okvec, _ = _pick_by_angle(vec, st["ov"][flat])
-
-            # save the CURRENT position (pre-step), as the reference does
-            save = st["active"] & inb & okvec
-            st["npts"] = st["npts"] + save.to(st["npts"].dtype)
-            if deltas:
-                st["outs"][t], st["pos_q"] = _quantize_step(
-                    pos, st["pos_q"], save, qscale, dmax)
-            else:
-                st["outs"][t] = pos
-            st["saved"][t] = save
-
-            # post-save stopping rules
-            cosang = (vec * vnext).sum(dim=1)
-            cont = save & (cosang >= cosang_thresh) & (st["npts"] <= len_max)
-
-            # EMA smoothing, then advance
-            st["pos"] = torch.where(cont[:, None], pos_next, pos)
-            st["vec"] = torch.where(
-                cont[:, None], _smooth_dir(vec, vnext, smooth_coeff), vec)
-            st["active"] = cont
-    return [(st["outs"], st["saved"], st["npts"], st["pos_q"])
-            for st in state]
-
-
-def _quantize_step(pos, pos_q, save, qscale, dmax):
-    """One step of the error-feedback quantizer: (delta [S, 3], integral
-    float32 values for an int8 store, and the new decoded position).
-    d = clip(round((pos - pos_q) * qscale), -dmax, dmax), zero where the
-    point is not saved, and pos_q advances by d / qscale with the step
-    rounded to float32, as the reference's weak constants are.
-
-    The reference's `pos_q + d * (1 / qscale)` is one fused multiply-add
-    in XLA: a single rounding.  Here it is a float64 sum rounded once to
-    float32, which is the same number: d (|d| <= 127) times the float32
-    step is exact in float64, and so is its sum with a float32 position
-    of a volume's size."""
-    d = torch.clamp(torch.round((pos - pos_q) * qscale), -dmax, dmax)
-    d = torch.where(save[:, None], d, 0.0)
-    step = float(np.float32(1.0 / qscale))
-    return d, torch.add(pos_q.double(), d, alpha=step).float()
-
-
 def _seed_state(seeds, subs, ovecs_flat, shape3):
     """Start positions [S, 3] (seed voxel + sub-voxel offset, host arrays)
     and the first orientation vector at each seed voxel (reference:
     src/stream.jl:645-650), on the device of `ovecs_flat`."""
     pos0 = upload(np.asarray(seeds + subs, np.float32), ovecs_flat.device)
     flat, _ = _flat_index(torch.round(pos0).to(torch.int64), shape3)
-    return pos0, ovecs_flat[flat][:, 0, :]
+    return pos0, ovecs_flat[flat][:, 0, :].contiguous()
 
 
 def propagate_chunk(seeds, subs, ovecs_flat, shape3, nsteps, step_size,
@@ -278,22 +159,24 @@ def propagate_shards(parts, shape3, nsteps, step_size, cosang_thresh,
                      smooth_coeff, len_max, emit="points", qscale=254.0,
                      dmax=127):
     """`propagate_chunk` for the seed shards `parts` [(seeds, subs,
-    ovecs_flat)], each on its field's device, their steps interleaved
-    (`_propagate_many`).  Returns one (fwd_out, fwd_n, bwd_out, bwd_n,
-    anchor) per shard."""
-    starts = [_seed_state(sd, sb, ov, shape3) for sd, sb, ov in parts]
+    ovecs_flat)], each on its field's device: one `propagate_dir` call
+    per shard and direction.  On the card each is one kernel launch that
+    does not wait for the card, so the devices of a mesh work at once.
+    The backward direction starts from the forward counts, so both share
+    the reference's single length budget (reference: src/stream.jl:
+    648-686).  Returns one (fwd_out, fwd_n, bwd_out, bwd_n, anchor) per
+    shard."""
     args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff, len_max,
             emit, qscale, dmax)
-    fwd = _propagate_many(
-        [(p0, v0, torch.zeros(p0.shape[0], dtype=torch.int32,
-                               device=p0.device), ov)
-         for (p0, v0), (_, _, ov) in zip(starts, parts)], *args)
-    bwd = _propagate_many(
-        [(p0, -v0, nf, ov) for (p0, v0), (_, _, nf, _), (_, _, ov)
-         in zip(starts, fwd, parts)], *args)
-    return [(fo, fs.sum(dim=0, dtype=torch.int32),
-             bo, bs.sum(dim=0, dtype=torch.int32), fq)
-            for (fo, fs, _, fq), (bo, bs, _, _) in zip(fwd, bwd)]
+    out = []
+    for seeds, subs, ov in parts:
+        p0, v0 = _seed_state(seeds, subs, ov, shape3)
+        zero = torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device)
+        fo, fs, nf, fq = propagate_dir(p0, v0, zero, ov, *args)
+        bo, bs, _, _ = propagate_dir(p0, -v0, nf, ov, *args)
+        out.append((fo, fs.sum(dim=0, dtype=torch.int32),
+                    bo, bs.sum(dim=0, dtype=torch.int32), fq))
+    return out
 
 
 # ------------------------------------------------------------------ #
@@ -888,8 +771,9 @@ def stream_micro_new_point(pos_now, vec_now, work: StreamWork):
 def _launch_sharded(seeds, subs, mesh, fields, args):
     """One chunk's seeds split over the mesh's data axis (this process's
     shards), padded to a multiple of it with out-of-volume seeds (-10),
-    as fibers_tpu/tract/stream.py:1157-1164 does; propagated with the
-    shards' steps interleaved.  The padding seeds are cut from the
+    as fibers_tpu/tract/stream.py:1157-1164 does; propagated by
+    `propagate_shards`, one launch per shard and direction on the card.
+    The padding seeds are cut from the
     results, so only real seeds reach `_drive`, in seed order."""
     m = len(seeds)
     per = pad_to_multiple(m, mesh.ndata) // mesh.ndata
