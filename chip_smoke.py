@@ -24,12 +24,21 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   tv_bf16 run; the card's slice against the CPU's on the small config-4
   phantom.
 - DSI (config 3 at full width, chained into ~1M streams), the structure
-  tensor on config 4's volume, the LCM and microscopy tractography modes
-  and the CLI (`python -m fibers_tpu_torch dsi`/`structens`), with their
-  card-against-CPU checks on small inputs.  The DSI fit, the structure
-  tensor and the modes launch none of the hand-written kernels (their
-  counts must stay 0); the DSI chain's stream launches `propagate_dir`
-  twice a chunk.
+  tensor on config 4's volume and the CLI (`python -m fibers_tpu_torch
+  dsi`/`structens`), with their card-against-CPU checks on small inputs.
+  The DSI fit and the structure tensor launch none of the hand-written
+  kernels (their counts must stay 0); the DSI chain's stream launches
+  `propagate_dir` twice a chunk.
+- The LCM and microscopy modes (`[modes]` lines): the self-checks of
+  their kernels' arithmetic against torch (the window sums of three;
+  logf, the Gumbel transform of every uniform, the sum of ten, the
+  argmax and the Philox uniforms); the first chunk of each mode's run,
+  kernel against plain step loop on both directions, bit for bit, one
+  direction timed beside the plain loop with the bound; stream + write
+  of LCM on a 256^2 slice (3 jitters a voxel) and microscopy on 256^2 x 2
+  through the kernels and through the plain loops, .trk byte for byte;
+  microscopy on a 1024^2 x 2 slice through its kernel.  Each kernel
+  launches twice a chunk.
 - Wires (`[wire]` lines): the headline pipeline as bench.py:240-261
   writes it (the batch on the u12 upload wire, the points on the i6
   point wire) against the f32 run, and its i6 stream against f32 points
@@ -92,6 +101,11 @@ KERNELS = [
      "benchmarks/exp_tv_variants.py:99", False),
     ("propagate_dir", "fibers_tpu_torch/csrc/propagate.cu",
      "fibers_tpu/tract/stream.py:149 _propagate (lax.scan, XLA)", True),
+    ("propagate_lcm_dir", "fibers_tpu_torch/csrc/propagate_lcm.cu",
+     "fibers_tpu/tract/modes.py:47 _propagate_lcm (lax.scan, XLA)", True),
+    ("propagate_micro_dir", "fibers_tpu_torch/csrc/propagate_micro.cu",
+     "fibers_tpu/tract/modes.py:301 _propagate_micro (lax.scan, XLA)",
+     True),
 ]
 # the GQI kernel's shapes: the main path's N, and a ragged N at maxdeg 6
 # and 7 (sphere, rows); the first is timed
@@ -143,9 +157,14 @@ def _wrappers():
     from fibers_tpu_torch.ops.kernels.tv_stencil import tv_multiplier
     from fibers_tpu_torch.ops.kernels.tv_variants import tv_2slice, tv_dimsem
     from fibers_tpu_torch.ops.kernels.propagate import propagate_dir
+    from fibers_tpu_torch.ops.kernels.propagate_lcm import propagate_lcm_dir
+    from fibers_tpu_torch.ops.kernels.propagate_micro import \
+        propagate_micro_dir
     return dict(gqi_fused=gqi_fused, tv_fused=tv_fused,
                 tv_multiplier=tv_multiplier, tv_dimsem=tv_dimsem,
-                tv_2slice=tv_2slice, propagate_dir=propagate_dir)
+                tv_2slice=tv_2slice, propagate_dir=propagate_dir,
+                propagate_lcm_dir=propagate_lcm_dir,
+                propagate_micro_dir=propagate_micro_dir)
 
 
 def reset_counts():
@@ -469,8 +488,9 @@ class launches_must_not_sync:
 
 def phase_nosync():
     """The deterministic engine on a small cut of the main path (device
-    peaks of a GQI fit), the LCM and the microscopy engine, every step
-    loop under `launches_must_not_sync`."""
+    peaks of a GQI fit), the LCM and the microscopy engine, every chunk's
+    propagation under `launches_must_not_sync`: each engine's kernel
+    launches, two a chunk."""
     import torch
     import fibers_tpu_torch as tt
     from fibers_tpu_torch.utils.phantom import (make_brain, make_lcm_field,
@@ -481,6 +501,7 @@ def phase_nosync():
     gqi = tt.gqi_rec(dwi, mask, tt.sphere_642)
     ovecs, lcm, lmask = make_lcm_field((48, 48))
     mov, mmask = make_micro_field((40, 36, 2))
+    reset_counts()
     with launches_must_not_sync() as guard:
         det = tt.stream(tt.peaks_to_ovecs(gqi, device=True).first(1),
                         mask=mask, nsub=3, f_thresh=0.0, wire="f32",
@@ -497,12 +518,20 @@ def phase_nosync():
             tripped = True
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    log(f"[nosync] step loops under set_sync_debug_mode('error'): "
-        f"{guard.made} chunk launches ({n_det} deterministic, then LCM and "
-        f"micro) without a host sync; streams {det.n_count} / "
-        f"{lcm_t.n_count} / {mic.n_count}; {time.time() - t0:.1f} s")
+    counts = read_counts()
+    log(f"[nosync] chunk propagation under set_sync_debug_mode('error'): "
+        f"{guard.made} chunks ({n_det} deterministic, then LCM and micro) "
+        f"without a host sync; streams {det.n_count} / {lcm_t.n_count} / "
+        f"{mic.n_count}; kernel launches {counts}; "
+        f"{time.time() - t0:.1f} s")
     check(tripped, "the sync debug mode did not trip on a blocking copy")
     check(n_det >= 2 and guard.made >= n_det + 2, "a step loop did not run")
+    check(counts["propagate_dir"] == 2 * n_det
+          and counts["propagate_lcm_dir"] >= 2
+          and counts["propagate_micro_dir"] >= 2
+          and counts["propagate_lcm_dir"] + counts["propagate_micro_dir"]
+          == 2 * (guard.made - n_det),
+          f"the engines did not launch their kernels twice a chunk: {counts}")
     check(min(det.n_count, lcm_t.n_count, mic.n_count) > 0,
           "an engine gave no streamlines under the sync check")
 
@@ -635,21 +664,27 @@ def stream_chunks(nseeds, shards=1):
 
 
 class plain_loop:
-    """Inside the block, the stream's propagation runs the plain step
-    loop (`propagate_dir_plain`) on the card, as the port did before its
-    kernel: for timing beside the kernel, never in the port."""
+    """Inside the block, the three engines' propagation runs the plain
+    step loops (`propagate_dir_plain`, `propagate_lcm_dir_plain`,
+    `propagate_micro_dir_plain`) on the card, as the port did before its
+    kernels: for timing beside the kernels, never in the port."""
 
     def __enter__(self):
-        from fibers_tpu_torch.ops.kernels.propagate import \
-            propagate_dir_plain
-        from fibers_tpu_torch.tract import stream as stream_mod
-        self._real = stream_mod.propagate_dir
-        stream_mod.propagate_dir = propagate_dir_plain
+        from fibers_tpu_torch.ops.kernels import (propagate,
+                                                  propagate_lcm,
+                                                  propagate_micro)
+        from fibers_tpu_torch.tract import modes, stream as stream_mod
+        self._slots = [(stream_mod, "propagate_dir", propagate),
+                       (modes, "propagate_lcm_dir", propagate_lcm),
+                       (modes, "propagate_micro_dir", propagate_micro)]
+        self._real = [getattr(mod, name) for mod, name, _ in self._slots]
+        for mod, name, kmod in self._slots:
+            setattr(mod, name, getattr(kmod, name + "_plain"))
         return self
 
     def __exit__(self, *exc):
-        from fibers_tpu_torch.tract import stream as stream_mod
-        stream_mod.propagate_dir = self._real
+        for (mod, name, _), real in zip(self._slots, self._real):
+            setattr(mod, name, real)
 
 
 def step_launches(work, seeds):
@@ -777,18 +812,21 @@ def phase_sum3():
 
 
 class visited_voxels:
-    """Inside the block, the plain loop counts in `hits` [nvox] the
+    """Inside the block, the plain loop of the kernel module `module`
+    (default `ops/kernels/propagate.py`) counts in `hits` [nvox] the
     in-bounds voxels it gathers (its `_flat_index`).  A stopped stream
     keeps its position and direction, so it gathers again the voxel of
     its last active step: the voxels hit are those the kernel reads."""
 
-    def __init__(self, nvox, device):
+    def __init__(self, nvox, device, module=None):
         import torch
+        from fibers_tpu_torch.ops.kernels import propagate
         self.hits = torch.zeros(nvox, dtype=torch.int32, device=device)
+        self.module = module or propagate
 
     def __enter__(self):
         import torch
-        from fibers_tpu_torch.ops.kernels import propagate as prop_mod
+        prop_mod = self.module
         self._real = real = prop_mod._flat_index
         hits = self.hits
 
@@ -802,8 +840,7 @@ class visited_voxels:
         return self
 
     def __exit__(self, *exc):
-        from fibers_tpu_torch.ops.kernels import propagate as prop_mod
-        prop_mod._flat_index = self._real
+        self.module._flat_index = self._real
 
 
 def phase_propagate(name, work, seed):
@@ -904,7 +941,7 @@ def phase_propagate(name, work, seed):
     return records
 
 
-def kernel_vs_plain(name, run, d):
+def kernel_vs_plain(name, run, d, tag="[propagate]"):
     """stream + write of `run(trk)` through the kernel, through the plain
     loop (`plain_loop`), and through the kernel again, each ending in a
     synchronize; the plain and second kernel .trk files against the
@@ -926,7 +963,7 @@ def kernel_vs_plain(name, run, d):
     equal = [filecmp.cmp(paths[0], p, shallow=False) for p in paths[1:]]
     for p in paths:
         os.remove(p)
-    log(f"[propagate] {name} stream+write: kernel {times[0]:.3f} / "
+    log(f"{tag} {name} stream+write: kernel {times[0]:.3f} / "
         f"{times[2]:.3f} s, plain loop {times[1]:.3f} s; .trk of the plain "
         f"loop {'byte-equal' if equal[0] else 'DIFFERS'}, of the kernel's "
         f"second run {'byte-equal' if equal[1] else 'DIFFERS'}; launches "
@@ -1728,8 +1765,8 @@ def phase_mesh_step(mesh, n=131_072):
 
 
 def _check_no_kernel(counts, what):
-    """The DSI fit, the structure tensor and the LCM/micro modes run none
-    of the kernels: their launch counts stay 0."""
+    """The DSI fit and the structure tensor run none of the kernels: their
+    launch counts stay 0."""
     check(not any(counts.values()), f"{what} launched kernels: {counts}")
 
 
@@ -1913,44 +1950,266 @@ def _micro_seed(mask):
 MICRO = dict(nsub=None, ang_thresh=None, step_size=None, smooth_coeff=None)
 
 
+# floating-point operations of the mode kernels, counting a log, square
+# root or divide as one: an active LCM stream-step needs at least its next
+# position (6) and the angle pick over its nvec candidates (7 each; the
+# draw and the jump's pick come only on entering a voxel, and the Philox
+# draws are integer work, outside the FP32 peak); each window cell of a
+# micro step inside the volume and the mask its cone test (3 products, 2
+# sums, a compare), and each active micro stream-step its next position
+# and angle test (11)
+LCM_FLOPS_STEP, LCM_FLOPS_CAND = 6, 7
+MICRO_FLOPS_CELL, MICRO_FLOPS_STEP = 6, 11
+# the modes' runs: LCM on a 256 x 256 slice with 3 jitters a voxel (a
+# 512 x 512 slice wrote a 6.29 GB .trk, past the 4 GB this script allows a
+# run, so its side is halved), microscopy on 1024 x 1024 x 2 at 10 um with
+# every 4th voxel seeded; both at 256 for the run through the plain loops
+LCM_SIDE, MICRO_SIDE, PLAIN_SIDE = 256, 1024, 256
+
+
+class _Captured(Exception):
+    pass
+
+
+def first_chunk_calls(name, run):
+    """The arguments of the first two calls (the first chunk's forward and
+    backward direction) of `tract/modes.py:<name>` in `run()`, which stops
+    there.  The forward call runs, so the backward one gets its counts."""
+    from fibers_tpu_torch.tract import modes
+    real, calls = getattr(modes, name), []
+
+    def record(*args):
+        calls.append(args)
+        if len(calls) == 2:
+            raise _Captured
+        return real(*args)
+
+    setattr(modes, name, record)
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        setattr(modes, name, real)
+    check(len(calls) == 2, f"{name}: the run made {len(calls)} calls")
+    return calls
+
+
+class window_cells:
+    """Inside the block, the micro plain loop records, step by step, how
+    many cells of each stream's window lie in the volume and the mask (the
+    cells whose cone test the step needs; `steps`, one [S] tensor a step)
+    and counts in `hits` [nvox] the voxels those cells are."""
+
+    def __init__(self, mask_flat):
+        import torch
+        self.mask, self.steps = mask_flat, []
+        self.hits = torch.zeros(mask_flat.shape[0], dtype=torch.int32,
+                                device=mask_flat.device)
+
+    def __enter__(self):
+        import torch
+        from fibers_tpu_torch.ops.kernels import propagate_micro as pm
+        self._real = real = pm._flat_index
+
+        def counted(ipos, shape3):
+            flat, inb = real(ipos, shape3)
+            if ipos.dim() == 3:                      # the window [S, W, 3]
+                need = inb & self.mask[flat]
+                self.steps.append(need.sum(dim=1, dtype=torch.int32))
+                self.hits.index_add_(0, flat.reshape(-1),
+                                     need.reshape(-1).to(torch.int32))
+            return flat, inb
+
+        pm._flat_index = counted
+        return self
+
+    def __exit__(self, *exc):
+        from fibers_tpu_torch.ops.kernels import propagate_micro as pm
+        pm._flat_index = self._real
+
+
+def mode_chunk(name, calls):
+    """[modes] The first chunk of a mode's run (`calls`: its forward and
+    backward calls): the kernel against the plain loop on both directions,
+    bit for bit on every output; the forward direction timed with CUDA
+    events in turns plain / kernel / kernel / plain, beside the bound of
+    its bytes (start state, outputs, the field's voxels it visits) and
+    its operations (the active stream-steps; for micro the in-volume,
+    in-mask window cells of each).  Returns the record."""
+    import torch
+    from fibers_tpu_torch.ops.kernels import propagate_lcm, propagate_micro
+    lcm = name == "lcm"
+    kmod = propagate_lcm if lcm else propagate_micro
+    kern = getattr(kmod, f"propagate_{name}_dir")
+    plain = getattr(kmod, f"propagate_{name}_dir_plain")
+    ni = 3 if lcm else 2                  # npts0 among the arguments
+    fwd_args, bwd_args = calls
+    fwd, bwd = kern(*fwd_args), kern(*bwd_args)
+    torch.cuda.synchronize()
+    mask = fwd_args[ni + 1]
+    if lcm:
+        seen = visited_voxels(mask.shape[0], mask.device, propagate_lcm)
+    else:
+        seen = window_cells(mask)
+    with seen:
+        fwd_p = plain(*fwd_args)
+    bwd_p = plain(*bwd_args[:ni], fwd_p[ni], *bwd_args[ni + 1:])
+    same = [_same_bits(a, b) for a, b in zip(fwd + bwd, fwd_p + bwd_p)]
+    err = _max_err(fwd + bwd, fwd_p + bwd_p)
+    check(all(same), f"{name}: the kernel differs from the plain loop "
+          f"(outputs of both directions equal: {same}; max|d| {err})")
+    out, saved = fwd_p[0], fwd_p[1]
+    nsteps, s = saved.shape
+    del bwd, bwd_p
+    torch.cuda.empty_cache()
+
+    def k():
+        return kern(*fwd_args)
+
+    def p():
+        return plain(*fwd_args)
+
+    k()
+    torch.cuda.synchronize()
+    turns = [cuda_ms(p, 1), cuda_ms(k, 5), cuda_ms(k, 5), cuda_ms(p, 1)]
+    state = sum(t.nbytes for t in fwd_args[ni - 2:ni + 1])
+    outputs = sum(t.nbytes for t in fwd)
+    if lcm:
+        ovecs, lcms = fwd_args[ni + 2], fwd_args[ni + 3]
+        nvec = ovecs.shape[1]
+        nvisit = int((seen.hits > 0).sum())
+        field = nvisit * (nvec * 12 + lcms.shape[1] * 4 + 1)
+        moved = (out[1:] != out[:-1]).any(dim=-1)
+        steps = s + int(moved.sum())
+        flops = steps * (LCM_FLOPS_STEP + nvec * LCM_FLOPS_CAND)
+        extra = dict(nvec=nvec)
+    else:
+        # a stream searches at its saved steps and at the one after
+        n_saved = saved.sum(dim=0)
+        active = (torch.arange(nsteps, device=saved.device)[:, None]
+                  <= n_saved[None])
+        cells = int((torch.stack(seen.steps) * active).sum())
+        steps = int(active.sum())
+        nvisit = int((seen.hits > 0).sum())
+        field = (nvisit * 13 + fwd_args[ni + 3].nbytes
+                 + fwd_args[ni + 4].nbytes)
+        flops = cells * MICRO_FLOPS_CELL + steps * MICRO_FLOPS_STEP
+        extra = dict(window=int(fwd_args[ni + 3].shape[0]),
+                     window_cells_tested=cells)
+    nbytes = state + outputs + field
+    rec = dict(max_abs_err=err, ms=(turns[1] + turns[2]) / 2,
+               plain_ms=(turns[0] + turns[3]) / 2, streams=s, nsteps=nsteps,
+               active_steps=steps, voxels_visited=nvisit, nbytes=nbytes,
+               flops=flops, **extra, **bound_ms(nbytes, flops))
+    log(f"[modes] {name} chunk: {s} streams x {nsteps} steps: kernel "
+        f"bit-equal to the plain loop on both directions; one direction: "
+        f"kernel {rec['ms']:.3f} ms, plain loop {rec['plain_ms']:.3f} ms "
+        f"(turns plain, kernel, kernel, plain: "
+        f"{', '.join(f'{t:.3f}' for t in turns)}); bound "
+        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes / 1e6:.1f}"
+        f" MB with {nvisit} voxels visited; {flops / 1e9:.3f} GFLOP over "
+        f"{steps} active stream-steps"
+        f"{'' if lcm else f', {cells} window cells'}), share "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f}%")
+    return rec
+
+
 def phase_modes():
-    """LCM on a 256x256 slice (3 jitters per voxel) and microscopy on a
-    256x256x2 field at 10 um (every 4th voxel seeded), each written to a
-    .trk and read back."""
+    """[modes] The LCM and microscopy modes through their kernels: the
+    self-checks of the kernels' arithmetic against torch on the card; the
+    first chunk of each mode's run, kernel against plain loop
+    (`mode_chunk`); stream + write on LCM_SIDE^2 (3 jitters a voxel) and
+    PLAIN_SIDE^2 x 2 microscopy through the kernels and through the plain
+    loops, their .trk files byte for byte; microscopy on MICRO_SIDE^2 x 2
+    through the kernel.  Each run's .trk is read back and checked; each
+    kernel launches twice a chunk.  Returns ({mode: record}, {mode:
+    launches of the kernels on its run through them})."""
     import numpy as np
     import fibers_tpu_torch as tt
+    from fibers_tpu_torch.ops.kernels.propagate_lcm import lcm_selfcheck
+    from fibers_tpu_torch.ops.kernels.propagate_micro import window_selfcheck
     from fibers_tpu_torch.utils.phantom import make_lcm_field, make_micro_field
 
-    ovecs, lcm, lmask = make_lcm_field((256, 256))
-    mov, mmask = make_micro_field()
+    t0 = time.time()
+    win, arith = window_selfcheck(), lcm_selfcheck()
+    log(f"[modes] self-checks on the card: the micro kernel's window sums "
+        f"of three against torch's (4096 streams x 748 cells, both "
+        f"layouts) {win} mismatches; the LCM kernel's arithmetic against "
+        f"torch's (logf on 2^22 floats, the Gumbel transform of all 2^24 "
+        f"uniforms, 2^19 sums of ten and argmaxes, 2^17 x 10 uniforms) "
+        f"{arith} mismatches")
+    check(win == 0 and not any(arith.values()),
+          "a mode kernel's arithmetic differs from torch's on the card")
+
+    ovecs, lcm, lmask = make_lcm_field((LCM_SIDE, LCM_SIDE))
+    mov, mmask = make_micro_field((PLAIN_SIDE, PLAIN_SIDE, 2))
     mseed = _micro_seed(mmask)
-    out = {}
+    big, bmask = make_micro_field((MICRO_SIDE, MICRO_SIDE, 2))
+    bseed = _micro_seed(bmask)
+    nseeds = dict(lcm=3 * int((lmask.vol > 0).sum()),
+                  micro=int((bseed.vol > 0).sum()))
+    sizes = dict(lcm=f"{LCM_SIDE}^2", micro=f"{MICRO_SIDE}^2 x 2")
+    runs = dict(
+        lcm=lambda trk=None: tt.stream(ovecs, mask=lmask, lcms=lcm, nsub=3,
+                                       trk_sink=trk),
+        micro256=lambda trk=None: tt.stream(
+            mov, mask=mmask, seed=mseed, search_dist=15, trk_sink=trk,
+            **MICRO),
+        micro=lambda trk=None: tt.stream(big, mask=bmask, seed=bseed,
+                                         search_dist=15, trk_sink=trk,
+                                         **MICRO))
+    records = {
+        "lcm": mode_chunk("lcm", first_chunk_calls("propagate_lcm_dir",
+                                                   runs["lcm"])),
+        "micro": mode_chunk("micro", first_chunk_calls(
+            "propagate_micro_dir", runs["micro"]))}
+    launches = {}
     with tempfile.TemporaryDirectory() as d:
-        reset_counts()
-        for name, run in (
-                ("lcm", lambda trk: tt.stream(ovecs, mask=lmask, lcms=lcm,
-                                              nsub=3, trk_sink=trk)),
-                ("micro", lambda trk: tt.stream(mov, mask=mmask, seed=mseed,
-                                                search_dist=15, trk_sink=trk,
-                                                **MICRO))):
+        for name in ("lcm", "micro256"):
+            times, plain_s, counts = kernel_vs_plain(name, runs[name], d,
+                                                     "[modes]")
+            mode = name[:-3] if name.endswith("256") else name
+            records[mode][f"stream_write_s_{PLAIN_SIDE}"] = dict(
+                kernel=times, plain=plain_s)
+            if name == "lcm":
+                launches["lcm"] = counts
+        for name in ("lcm", "micro"):
             trk = os.path.join(d, f"{name}.trk")
-            t0 = time.time()
-            tract = run(trk)
-            t = time.time() - t0
+            reset_counts()
+            t1 = time.time()
+            tract = runs[name](trk)
+            t = time.time() - t1
+            counts = read_counts()
+            size = os.path.getsize(trk)
             back = tt.trk_read(trk)
             npts = int(np.sum(tract.npts))
-            log(f"[modes] {name}: {tract.n_count} streams, {npts} points, "
-                f"stream+write {t:.3f} s")
+            kname = f"propagate_{name}_dir"
+            want = 2 * -(-nseeds[name] // records[name]["streams"])
+            log(f"[modes] {name} {sizes[name]}: {nseeds[name]} seeds, "
+                f"{tract.n_count} streams, {npts} points, .trk "
+                f"{size / 1e9:.3f} GB, stream+write {t:.3f} s; launches "
+                f"{counts}")
             check(tract.n_count > 0, f"no {name} streamlines")
             check(back.n_count == tract.n_count
                   and int(np.sum(back.npts)) == npts,
                   f"{name} .trk holds {back.n_count} lines, the Tract "
                   f"{tract.n_count}")
+            check(all(np.isfinite(x).all() for x in back.xyz),
+                  f"{name}: non-finite points in the .trk")
             if name == "lcm":
                 check(back.n_scalars == 1, "the LCM .trk has no scalar")
-            out[name] = t
-        _check_no_kernel(read_counts(), "the LCM and micro modes")
-    return out
+            check(counts[kname] == want
+                  and sum(counts.values()) == counts[kname],
+                  f"the {name} run launched {counts}, not {kname} twice a "
+                  f"chunk ({want})")
+            del back, tract
+            os.remove(trk)
+            records[name]["stream_write_s"] = t
+            records[name]["trk_bytes"] = size
+            launches[name] = counts
+    log(f"[modes] phase {time.time() - t0:.1f} s")
+    return records, launches
 
 
 def phase_new_small():
@@ -2104,15 +2363,15 @@ def main():
     launches["tv_multiplier"] = counts_b16["tv_multiplier"]
     phase_rumba_small()
 
-    # the paths with no hand-written kernel but the DSI chain's
-    # propagation: DSI, the structure tensor, the LCM and micro modes, the
-    # CLI
+    # DSI and the structure tensor (no hand-written kernel but the DSI
+    # chain's propagation), the LCM and micro modes (their own kernels),
+    # the CLI
     t1 = time.time()
     phase_structens(mean_dwi, mesh)
     del mean_dwi
     dsi_chain, dsi_sw = phase_dsi(mesh)
     stream_launches["dsi_chain"] = dsi_chain["propagate_dir"]
-    phase_modes()
+    mode_records, mode_launches = phase_modes()
     dsi_small = phase_new_small()
     phase_cli(dsi_small)
     log(f"[new phases] {time.time() - t1:.1f} s")
@@ -2135,7 +2394,16 @@ def main():
         launches_per_chunk_and_step=per_step,
         stream_write_s={"pipeline": main_sw[:2], "rumba_chain_f32":
                         rumba_sw[:2], "dsi_chain": dsi_sw[:2]})
-    # no single PyTorch call computes any of the six functions; gqi_fused
+    # the mode kernels' records: the first chunk of each mode's run, its
+    # stream + write, and the launches on that run (LCM on LCM_SIDE^2,
+    # micro on MICRO_SIDE^2 x 2)
+    for mode in ("lcm", "micro"):
+        name = f"propagate_{mode}_dir"
+        launches[name] = mode_launches[mode][name]
+        records[name] = dict(
+            mode_records[mode], launches_by_path=mode_launches,
+            library_call="none: no PyTorch call integrates streamlines")
+    # no single PyTorch call computes any of the eight functions; gqi_fused
     # carries the product alone as its partial yardstick
     kernels = []
     for name, src, site, on_path in KERNELS:

@@ -40,52 +40,14 @@
 // stop, and the 12-byte array-of-structs stores are only partly
 // coalesced.  What it reaches is in PERF.md.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "propagate_common.cuh"
 
 namespace {
 
+using prop::dot3;
+using prop::round_i64;
+
 constexpr int kThreads = 128;
-
-// A sum of three products as torch's CUDA reduction takes it over a
-// contiguous last dimension of 3 (ATen/native/cuda/Reduce.cuh: two lanes,
-// lane 0 reduces elements 0 and 2 into separate accumulators, lane 1
-// element 1; the accumulators start at 0 and combine in order, then the
-// lanes): ((0 + p0) + (0 + p2)) + (0 + p1).  The zeros only turn a -0 into
-// +0.  ops/kernels/propagate.py:sum3_selfcheck holds it to Tensor.sum.
-__device__ __forceinline__ float dot3(float a0, float a1, float a2,
-                                      float b0, float b1, float b2)
-{
-    const float p0 = __fmul_rn(a0, b0);
-    const float p1 = __fmul_rn(a1, b1);
-    const float p2 = __fmul_rn(a2, b2);
-    return __fadd_rn(__fadd_rn(__fadd_rn(0.0f, p0), __fadd_rn(0.0f, p2)),
-                     __fadd_rn(0.0f, p1));
-}
-
-// torch.round (half to even), then .to(int64): cvt.rzi.s64.f32 on an
-// integral value (NaN gives 0, out of range saturates), as torch's copy.
-__device__ __forceinline__ long long round_i64(float x)
-{
-    return (long long)rintf(x);
-}
-
-// pos_q + d * step in float64 (exact for |d| <= 127 and a float32 step),
-// rounded once to float32: torch.add(pos_q.double(), d, alpha=step).
-__device__ __forceinline__ float quant_next(float q, float d, float qstep)
-{
-    return __double2float_rn(
-        __dadd_rn((double)q, __dmul_rn((double)d, (double)qstep)));
-}
-
-// torch.clamp(x, -dmax, dmax) then torch.where(save, ., 0.0)
-__device__ __forceinline__ float quant_delta(float p, float q, float qscale,
-                                             float dmax)
-{
-    const float d = rintf(__fmul_rn(__fsub_rn(p, q), qscale));
-    return isnan(d) ? d : fminf(fmaxf(d, -dmax), dmax);
-}
 
 struct Params {
     const float* pos0;      // [S, 3]
@@ -114,7 +76,6 @@ propagate_kernel(const Params p)
     float qx = px, qy = py, qz = pz;
     int n = p.npts0[s];
     bool active = true;
-    const long long nyz = (long long)p.ny * p.nz;
 
     for (int t = 0; t < p.nsteps; ++t) {
         bool save = false;
@@ -127,10 +88,11 @@ propagate_kernel(const Params p)
             const long long ix = round_i64(nxp);
             const long long iy = round_i64(nyp);
             const long long iz = round_i64(nzp);
-            if (ix >= 0 && ix < p.nx && iy >= 0 && iy < p.ny && iz >= 0
-                    && iz < p.nz) {
-                const float* cand =
-                    p.ovecs + (ix * nyz + iy * p.nz + iz) * p.nvec * 3;
+            bool inb;
+            const long long flat =
+                prop::flat_index(ix, iy, iz, p.nx, p.ny, p.nz, inb);
+            if (inb) {
+                const float* cand = p.ovecs + flat * p.nvec * 3;
                 float best_abs = 0.f, best_c = 0.f;
                 float bx = 0.f, by = 0.f, bz = 0.f;
                 for (int k = 0; k < p.nvec; ++k) {
@@ -141,12 +103,7 @@ propagate_kernel(const Params p)
                     const float c =
                         zero ? -INFINITY : dot3(ax, ay, az, vx, vy, vz);
                     const float ca = zero ? -INFINITY : fabsf(c);
-                    // torch.argmax: a NaN beats any number, the lower
-                    // index wins among equals and among NaNs
-                    const bool take = k == 0
-                        || (!isnan(best_abs)
-                            && (isnan(ca) || ca > best_abs));
-                    if (take) {
+                    if (k == 0 || prop::argmax_takes(best_abs, ca)) {
                         best_abs = ca;
                         best_c = c;
                         bx = ax;
@@ -164,26 +121,10 @@ propagate_kernel(const Params p)
         n += save;
 
         const size_t o = (size_t)t * p.S + s;
-        if (kDeltas) {
-            float dx = 0.f, dy = 0.f, dz = 0.f;
-            if (save) {
-                dx = quant_delta(px, qx, p.qscale, p.dmax);
-                dy = quant_delta(py, qy, p.qscale, p.dmax);
-                dz = quant_delta(pz, qz, p.qscale, p.dmax);
-            }
-            qx = quant_next(qx, dx, p.qstep);
-            qy = quant_next(qy, dy, p.qstep);
-            qz = quant_next(qz, dz, p.qstep);
-            int8_t* out = (int8_t*)p.out + 3 * o;
-            out[0] = (int8_t)dx;
-            out[1] = (int8_t)dy;
-            out[2] = (int8_t)dz;
-        } else {
-            float* out = (float*)p.out + 3 * o;
-            out[0] = px;
-            out[1] = py;
-            out[2] = pz;
-        }
+        float ox, oy, oz;
+        prop::point_out<kDeltas>(save, px, py, pz, qx, qy, qz, p.qscale,
+                                 p.qstep, p.dmax, ox, oy, oz);
+        prop::store3<kDeltas>(p.out, o, ox, oy, oz);
         p.saved[o] = save;
 
         // post-save stopping rules, then the smoothing and the advance
@@ -194,23 +135,7 @@ propagate_kernel(const Params p)
             px = nxp;
             py = nyp;
             pz = nzp;
-            if (p.smooth) {
-                const float sx = __fadd_rn(__fmul_rn(p.sc, vx),
-                                           __fmul_rn(p.sc1, wx));
-                const float sy = __fadd_rn(__fmul_rn(p.sc, vy),
-                                           __fmul_rn(p.sc1, wy));
-                const float sz = __fadd_rn(__fmul_rn(p.sc, vz),
-                                           __fmul_rn(p.sc1, wz));
-                float nrm = __fsqrt_rn(dot3(sx, sy, sz, sx, sy, sz));
-                nrm = isnan(nrm) ? nrm : fmaxf(nrm, 1e-20f);  // clamp_min
-                vx = __fdiv_rn(sx, nrm);
-                vy = __fdiv_rn(sy, nrm);
-                vz = __fdiv_rn(sz, nrm);
-            } else {
-                vx = wx;
-                vy = wy;
-                vz = wz;
-            }
+            prop::smooth_dir(vx, vy, vz, wx, wy, wz, p.sc, p.sc1, p.smooth);
         }
         active = cont;
     }

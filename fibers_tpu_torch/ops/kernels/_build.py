@@ -148,6 +148,18 @@ def _declare(lib):
     lib.propagate_launch.restype = ci
     lib.propagate_sum3_selfcheck.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.propagate_sum3_selfcheck.restype = ci
+    lib.propagate_micro_launch.argtypes = ([vp] * 7 + [ci] * 6 + [cf] * 5
+                                           + [ci] * 3 + [cf] * 3 + [vp] * 5)
+    lib.propagate_micro_launch.restype = ci
+    ll, cu = ctypes.c_longlong, ctypes.c_uint
+    lib.propagate_micro_window_selfcheck.argtypes = [vp] * 3 + [ll] * 3 + [vp]
+    lib.propagate_micro_window_selfcheck.restype = ci
+    lib.propagate_lcm_launch.argtypes = ([vp] * 8 + [ci] * 8 + [cu] * 2
+                                         + [cf] * 3 + [ci] * 3 + [cf] * 3
+                                         + [vp] * 6)
+    lib.propagate_lcm_launch.restype = ci
+    lib.propagate_lcm_selfcheck.argtypes = [ci, vp, vp, ll, cu, cu, ci, vp]
+    lib.propagate_lcm_selfcheck.restype = ci
 
 
 def load_library():

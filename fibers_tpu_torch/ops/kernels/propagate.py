@@ -18,9 +18,9 @@ and add apart (`__fmul_rn`, `__fadd_rn`), sums three products in the
 order of torch's CUDA reduction (`sum3_selfcheck` holds it to
 `Tensor.sum` on the card), and takes IEEE square roots and quotients.
 
-The step helpers (`_flat_index`, `_pick_by_angle`, `_smooth_dir`,
-`_quantize_step`) live here and are shared with the LCM and microscopy
-engines (tract/modes.py).
+The step helpers (`_flat_index`, `_take`, `_pick_by_angle`,
+`_smooth_dir`, `_quantize_step`) live here and are shared with the LCM
+and microscopy step loops (`propagate_lcm.py`, `propagate_micro.py`).
 """
 
 from __future__ import annotations
@@ -42,6 +42,12 @@ def _flat_index(ipos, shape3):
            & (iz >= 0) & (iz < nz))
     flat = (ix * ny + iy) * nz + iz
     return torch.where(inb, flat, torch.zeros_like(flat)), inb
+
+
+def _take(x, i):
+    """x [S, n, ...] at per-row index i [S] -> [S, ...]."""
+    idx = i.view(-1, *([1] * (x.dim() - 1))).expand(-1, 1, *x.shape[2:])
+    return torch.gather(x, 1, idx)[:, 0]
 
 
 def _pick_by_angle(vec_now, vecs):
@@ -128,40 +134,48 @@ def propagate_dir_plain(pos0, vec0, npts0, ovecs_flat, nsteps, shape3,
     return outs, saved, npts, pos_q
 
 
-def _check(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, emit, dmax):
-    s = pos0.shape[0] if pos0.dim() == 2 else -1
-    if pos0.shape != (s, 3) or vec0.shape != (s, 3) \
-            or npts0.shape != (s,):
-        raise ValueError(f"propagate_dir: pos0 and vec0 must be [S, 3] and "
-                         f"npts0 [S], got {tuple(pos0.shape)}, "
-                         f"{tuple(vec0.shape)}, {tuple(npts0.shape)}")
-    if pos0.dtype != torch.float32 or vec0.dtype != torch.float32 \
-            or ovecs_flat.dtype != torch.float32 \
-            or npts0.dtype != torch.int32:
-        raise TypeError(f"propagate_dir: float32 pos0, vec0 and ovecs_flat "
-                        f"and int32 npts0 expected, got {pos0.dtype}, "
-                        f"{vec0.dtype}, {ovecs_flat.dtype}, {npts0.dtype}")
-    nxyz = int(np.prod(shape3))
-    if ovecs_flat.dim() != 3 or ovecs_flat.shape[0] != nxyz \
-            or ovecs_flat.shape[2] != 3 or ovecs_flat.shape[1] < 1:
-        raise ValueError(f"propagate_dir: ovecs_flat must be [{nxyz}, nvec, "
-                         f"3] for the volume {tuple(shape3)}, got "
-                         f"{tuple(ovecs_flat.shape)}")
-    devs = {t.device for t in (pos0, vec0, npts0, ovecs_flat)}
+def _check_array(name, what, t, shape, dtype):
+    """t must be a `dtype` tensor of `shape` (None: any length >= 1)."""
+    if t.dim() != len(shape) or any(
+            n != want if want is not None else n < 1
+            for n, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: {what} must be {list(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+
+
+def _check_step_loop(name, pos0, vec0, npts0, nsteps, emit, dmax,
+                     **tables):
+    """The checks of every propagation wrapper: the start state pos0,
+    vec0 [S, 3] f32 and npts0 [S] int32, the point wire, nsteps, and all
+    tensors (the state and the named `tables`) contiguous on one
+    device."""
+    s = pos0.shape[0] if pos0.dim() == 2 else 1
+    _check_array(name, "pos0", pos0, (s, 3), torch.float32)
+    _check_array(name, "vec0", vec0, (s, 3), torch.float32)
+    _check_array(name, "npts0", npts0, (s,), torch.int32)
+    tensors = dict(pos0=pos0, vec0=vec0, npts0=npts0, **tables)
+    devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
-        raise ValueError(f"propagate_dir: arguments on several devices "
-                         f"{devs}")
+        raise ValueError(f"{name}: arguments on several devices {devs}")
     if emit not in ("points", "deltas"):
-        raise ValueError(f"propagate_dir: emit must be 'points' or "
-                         f"'deltas', got {emit!r}")
+        raise ValueError(f"{name}: emit must be 'points' or 'deltas', got "
+                         f"{emit!r}")
     if not 0 < dmax <= 127:
-        raise ValueError(f"propagate_dir: dmax {dmax} outside int8")
+        raise ValueError(f"{name}: dmax {dmax} outside int8")
     if nsteps < 0:
-        raise ValueError(f"propagate_dir: nsteps {nsteps} < 0")
-    for what, t in (("pos0", pos0), ("vec0", vec0), ("npts0", npts0),
-                    ("ovecs_flat", ovecs_flat)):
+        raise ValueError(f"{name}: nsteps {nsteps} < 0")
+    for what, t in tensors.items():
         if not t.is_contiguous():
-            raise ValueError(f"propagate_dir: {what} must be contiguous")
+            raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _check(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, emit, dmax):
+    _check_step_loop("propagate_dir", pos0, vec0, npts0, nsteps, emit, dmax,
+                     ovecs_flat=ovecs_flat)
+    _check_array("propagate_dir", "ovecs_flat", ovecs_flat,
+                 (int(np.prod(shape3)), None, 3), torch.float32)
 
 
 def propagate_dir(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,

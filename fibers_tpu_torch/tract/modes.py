@@ -10,11 +10,11 @@ LCM: the sub-voxel jitter is drawn from the second half of
 `split(PRNGKey(seed_rng))` and the per-chunk keys from
 `split(key, 2 * nchunks)`, bit for bit as in the reference
 (utils/prng.py).  The categorical draws cannot be: each (chunk,
-direction) seeds an explicit `torch.Generator` on the stream's device
-with the 64 bits of its key and draws Gumbel-max samples from it, so LCM
-lines match the reference in distribution (the reference itself draws
-from Julia's global RNG).  Each saved point carries one scalar, the
-method-difference flag.
+direction) draws counter-based Philox uniforms under its key
+(`ops/kernels/propagate_lcm.py:lcm_uniforms`), the same in the kernel and
+the plain loop, so LCM lines match the reference in distribution (the
+reference itself draws from Julia's global RNG).  Each saved point
+carries one scalar, the method-difference flag.
 
 Micro: jumps land on integer voxels, so the lines equal the reference's
 exactly.  Its integer point wire, deltas of one voxel (qscale = 1), is
@@ -24,7 +24,9 @@ go as float32, as in the reference.
 
 Both engines emit the point wire of `stream._wire_mode`: float32 points
 or error-feedback deltas (`ops/kernels/propagate.py:_quantize_step`).
-They keep their step loops of torch operations on the card too.
+Each direction of a chunk is one call of its engine's step loop,
+`propagate_lcm_dir` or `propagate_micro_dir`: one hand-written kernel
+launch on the card, the plain loop of torch operations on the CPU.
 """
 
 from __future__ import annotations
@@ -36,145 +38,17 @@ import numpy as np
 import torch
 
 from ..io.trk import Tract
-from ..ops.kernels.propagate import (_flat_index, _pick_by_angle,
-                                     _quantize_step, _smooth_dir)
+from ..ops.kernels.propagate_lcm import EDGETYPE, propagate_lcm_dir
+from ..ops.kernels.propagate_micro import propagate_micro_dir
 from ..utils.prng import prng_key, split, uniform
 from .stream import _drive, _seed_state, _seed_voxels
 
 __all__ = ["stream_lcm", "stream_micro"]
 
 
-# Voxel edges connected by the i-th element of a vectorized LCM
-# (reference: src/stream.jl:234-235); 0-based edge ids 0..3
-EDGETYPE = np.array([[0, 0, 0, 0, 1, 1, 1, 2, 2, 3],
-                     [0, 1, 2, 3, 1, 2, 3, 2, 3, 3]], np.int32)
-
-
-def _take(x, i):
-    """x [S, n, ...] at per-row index i [S] -> [S, ...]."""
-    idx = i.view(-1, *([1] * (x.dim() - 1))).expand(-1, 1, *x.shape[2:])
-    return torch.gather(x, 1, idx)[:, 0]
-
-
 # ------------------------------------------------------------------ #
 # LCM probabilistic mode
 # ------------------------------------------------------------------ #
-
-def _propagate_lcm(gen, pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat,
-                   dxyz, edget, strdims, nsteps, shape3, step_size,
-                   smooth_coeff, len_max, emit="points", qscale=254.0,
-                   dmax=127):
-    """One direction of LCM-guided propagation for S streams.
-
-    Carries the previously chosen vector index (the reference continues
-    along it while not entering a new voxel, src/stream.jl:399-411).
-    `dxyz` [3, 4] holds the in-plane increments of the four voxel edges,
-    `edget` is `EDGETYPE` on the device, `strdims` the two in-plane
-    dimensions.  Returns (out [nsteps, S, 3] positions, or int8 deltas
-    with emit="deltas", saved [nsteps, S], flags [nsteps, S] int8
-    method-difference flags, npts [S], anchor [S, 3]), as
-    `propagate_dir`."""
-    dev = pos0.device
-    s = pos0.shape[0]
-    jumps = dxyz.T.to(torch.float32)                     # [4, 3]
-    a, b = strdims
-    tiny = torch.finfo(torch.float32).tiny
-
-    deltas = emit == "deltas"
-    outs = torch.empty((nsteps, s, 3), device=dev,
-                       dtype=torch.int8 if deltas else torch.float32)
-    saved = torch.empty((nsteps, s), dtype=torch.bool, device=dev)
-    flags = torch.empty((nsteps, s), dtype=torch.int8, device=dev)
-    pos, vec, npts, pos_q = pos0, vec0, npts0, pos0
-    ivec_prev = torch.zeros(s, dtype=torch.int64, device=dev)
-    active = torch.ones(s, dtype=torch.bool, device=dev)
-    for t in range(nsteps):
-        pos_next = pos + vec * step_size
-        ipos_next = torch.round(pos_next).to(torch.int64)
-        ipos_now = torch.round(pos).to(torch.int64)
-        flat, inb = _flat_index(ipos_next, shape3)
-        inmask = mask_flat[flat] & inb
-        vecs = ovecs_flat[flat]                          # [S, nvec, 3]
-
-        # conventional angle pick, for the difference indicator
-        _, ok_ang, ivec_ang = _pick_by_angle(vec, vecs)
-
-        dvox = ipos_now - ipos_next                      # [S, 3]
-        same_vox = (dvox == 0).all(dim=1)
-
-        # not entering a new voxel: continue along the previous index
-        v_prev = _take(vecs, ivec_prev)
-        cos_prev = (vec * v_prev).sum(dim=1)
-        v_same = torch.where((cos_prev > 0)[:, None], v_prev, -v_prev)
-
-        # entering a new voxel: sample the LCM.  A diagonal jump keeps
-        # only its slower-changing in-plane dim (src/stream.jl:422-437).
-        d1 = (pos - pos_next).abs()
-        faster_b = d1[:, a] < d1[:, b]
-        is_diag = (dvox[:, a] != 0) & (dvox[:, b] != 0)
-        dvox = dvox.clone()
-        dvox[:, b] = torch.where(is_diag & faster_b, 0, dvox[:, b])
-        dvox[:, a] = torch.where(is_diag & ~faster_b, 0, dvox[:, a])
-
-        edge_match = (dvox[:, :, None] == dxyz[None, :, :]).all(dim=1)
-        entry = torch.argmax(edge_match.to(torch.int32), dim=1)
-        # no matching edge (through-plane or >1-voxel jump): the reference
-        # leaves the entry edge unset, which zeroes every LCM element and
-        # stops the stream (src/stream.jl:414-446, 488-494)
-        matched = edge_match.any(dim=1)
-
-        lcm = lcms_flat[flat]                            # [S, 10]
-        has_entry = ((edget[0][None, :] == entry[:, None])
-                     | (edget[1][None, :] == entry[:, None]))
-        lcm = torch.where(has_entry & matched[:, None], lcm, 0.0)
-        havelcm = lcm.sum(dim=1) > 0
-        logits = torch.log(torch.clamp_min(lcm, 1e-30))
-        u = torch.rand(lcm.shape, generator=gen, device=dev)
-        gumbel = -torch.log(-torch.log(torch.clamp_min(u, tiny)))
-        ilcm = torch.argmax(logits + gumbel, dim=1)
-
-        e0, e1 = edget[0][ilcm], edget[1][ilcm]
-        exit_edge = torch.where(e0 == entry, e1, e0)
-        jumpvec = jumps[exit_edge]                       # [S, 3]
-
-        # the vector best aligned with the jump toward the exit edge
-        cos_j = (vecs * jumpvec[:, None, :]).sum(dim=2)
-        iszero = (vecs == 0).all(dim=2)
-        cabs = torch.where(iszero, -torch.inf, cos_j.abs())
-        cos_j = torch.where(iszero, -torch.inf, cos_j)
-        ivec_new = torch.argmax(cabs, dim=1)
-        cbest = _take(cos_j, ivec_new)
-        vbest = _take(vecs, ivec_new)
-        v_new = torch.where((cbest > 0)[:, None], vbest, -vbest)
-        ok_new = torch.isfinite(cbest) & havelcm
-
-        vnext = torch.where(same_vox[:, None], v_same, v_new)
-        ivec_next = torch.where(same_vox, ivec_prev, ivec_new)
-        save = active & inb & inmask & (same_vox | ok_new) & ok_ang
-
-        npts = npts + save.to(npts.dtype)
-        if deltas:
-            outs[t], pos_q = _quantize_step(pos, pos_q, save, qscale, dmax)
-        else:
-            outs[t] = pos
-        saved[t] = save
-        # method-difference flag, in both branches (src/stream.jl:530-536)
-        flags[t] = ((ivec_next != ivec_ang) & save).to(torch.int8)
-
-        # no angle threshold in LCM mode (src/stream.jl:668-671)
-        cont = save & (npts <= len_max)
-        pos = torch.where(cont[:, None], pos_next, pos)
-        vec = torch.where(cont[:, None], _smooth_dir(vec, vnext,
-                                                     smooth_coeff), vec)
-        ivec_prev = ivec_next
-        active = cont
-    return outs, saved, flags, npts, pos_q
-
-
-def _key_seed(key) -> int:
-    """The 64 bits of a threefry key pair, as a torch.Generator seed."""
-    return (int(key[0]) << 32) | int(key[1])
-
 
 def stream_lcm(work, seed, lcms, wire):
     """Driver for probabilistic LCM tractography over a `StreamWork` of
@@ -232,13 +106,11 @@ def stream_lcm(work, seed, lcms, wire):
         pos0, v0 = _seed_state(seeds_all[lo:hi], subs_all[lo:hi],
                                work.ovec_flat, work.shape3)
         i = lo // cfg.chunk
-        gf = torch.Generator(device=dev).manual_seed(_key_seed(ckeys[2 * i]))
-        gb = torch.Generator(device=dev).manual_seed(
-            _key_seed(ckeys[2 * i + 1]))
         zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
-        fpts, fsav, fflag, nf, fq = _propagate_lcm(gf, pos0, v0, zero,
-                                                   *args)
-        bpts, bsav, bflag, _, _ = _propagate_lcm(gb, pos0, -v0, nf, *args)
+        fpts, fsav, fflag, nf, fq = propagate_lcm_dir(ckeys[2 * i], pos0, v0,
+                                                      zero, *args)
+        bpts, bsav, bflag, _, _ = propagate_lcm_dir(ckeys[2 * i + 1], pos0,
+                                                    -v0, nf, *args)
         return (fpts, fsav.sum(dim=0, dtype=torch.int32),
                 bpts, bsav.sum(dim=0, dtype=torch.int32), fq, fflag, bflag)
 
@@ -279,67 +151,6 @@ def _micro_search_dist(work):
     if ov0.vol.ndim == 3 or ov0.vol.shape[3] == 1:
         search_dist[int(np.argmax(ov0.volres))] = 0
     return search_dist
-
-
-def _propagate_micro(pos0, vec0, npts0, mask_flat, vec_first, win_off,
-                     win_dir, nsteps, shape3, step_size, cosang_thresh,
-                     search_cosang, smooth_coeff, len_max, emit="points",
-                     qscale=1.0, dmax=127):
-    """One direction of cone-search propagation for S streams: each step
-    looks at the window [S, W] around the tentative voxel and jumps to the
-    in-mask, in-cone voxel whose first vector is best aligned.
-    `vec_first` is the [nxyz, 3] first orientation vector per voxel.
-    Returns (out [nsteps, S, 3] positions or int8 deltas, saved
-    [nsteps, S], npts [S], anchor [S, 3]), as `propagate_dir`."""
-    dev = pos0.device
-    s = pos0.shape[0]
-    deltas = emit == "deltas"
-    outs = torch.empty((nsteps, s, 3), device=dev,
-                       dtype=torch.int8 if deltas else torch.float32)
-    saved = torch.empty((nsteps, s), dtype=torch.bool, device=dev)
-    pos, vec, npts, pos_q = pos0, vec0, npts0, pos0
-    active = torch.ones(s, dtype=torch.bool, device=dev)
-    for t in range(nsteps):
-        pos_next = pos + vec * step_size
-        ipos = torch.round(pos_next).to(torch.int64)
-        flat, inb = _flat_index(ipos, shape3)
-        inmask = mask_flat[flat] & inb
-
-        # the search window around the tentative voxel
-        wpos = ipos[:, None, :] + win_off[None, :, :]    # [S, W, 3]
-        wflat, winb = _flat_index(wpos, shape3)
-        wmask = mask_flat[wflat] & winb
-
-        # in the search cone around the current direction?
-        conedot = (vec[:, None, :] * win_dir[None, :, :]).sum(dim=2)
-        incone = wmask & (conedot > search_cosang)
-
-        wvec = vec_first[wflat]                          # [S, W, 3]
-        cosang = (vec[:, None, :] * wvec).sum(dim=2)
-        cosang = torch.where(incone, cosang, -torch.inf)
-        cabs = torch.where(torch.isfinite(cosang), cosang.abs(), -torch.inf)
-
-        iwin = torch.argmax(cabs, dim=1)
-        cbest = _take(cosang, iwin)
-        save = active & inb & inmask & torch.isfinite(cbest)
-        next_vox = _take(wpos, iwin)
-        vbest = _take(wvec, iwin)
-        vnext = torch.where((cbest > 0)[:, None], vbest, -vbest)
-
-        npts = npts + save.to(npts.dtype)
-        if deltas:
-            outs[t], pos_q = _quantize_step(pos, pos_q, save, qscale, dmax)
-        else:
-            outs[t] = pos
-        saved[t] = save
-
-        cosadv = (vec * vnext).sum(dim=1)
-        cont = save & (cosadv >= cosang_thresh) & (npts <= len_max)
-        pos = torch.where(cont[:, None], next_vox.to(torch.float32), pos)
-        vec = torch.where(cont[:, None], _smooth_dir(vec, vnext,
-                                                     smooth_coeff), vec)
-        active = cont
-    return outs, saved, npts, pos_q
 
 
 def _micro_wire(wire, cfg, nsub, step_size):
@@ -401,8 +212,8 @@ def stream_micro(work, seed, wire):
         pos0, v0 = _seed_state(seeds_all[lo:hi], subs_all[lo:hi],
                                work.ovec_flat, work.shape3)
         zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
-        fpts, fsav, nf, fq = _propagate_micro(pos0, v0, zero, *args)
-        bpts, bsav, _, _ = _propagate_micro(pos0, -v0, nf, *args)
+        fpts, fsav, nf, fq = propagate_micro_dir(pos0, v0, zero, *args)
+        bpts, bsav, _, _ = propagate_micro_dir(pos0, -v0, nf, *args)
         return (fpts, fsav.sum(dim=0, dtype=torch.int32),
                 bpts, bsav.sum(dim=0, dtype=torch.int32), fq)
 

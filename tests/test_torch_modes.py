@@ -13,8 +13,9 @@ Tolerances:
   either package, so the line equals the JAX package's exactly; with
   the default smoothing, within atol=1e-5 voxel;
 - LCM: the seed jitter equals the JAX package's bit for bit; the
-  categorical draws come from a torch.Generator, so the line geometry
-  matches only in distribution, held to the bound of
+  categorical draws are the port's counter-based Philox uniforms
+  (ops/kernels/propagate_lcm.py), so the line geometry matches only in
+  distribution, held to the bound of
   tests/test_stream.py:236 (|p_hat - 0.3| < max(4 sigma, 0.05)).
 """
 

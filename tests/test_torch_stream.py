@@ -392,10 +392,9 @@ def test_step_loops_build_no_tensor_from_the_host(monkeypatch):
     made = _guard_launches(monkeypatch, _NoTorchTensor())
     got = _run_three_engines("cpu")
     assert len(made) >= 4                    # two chunks, then one each
-    for a, b in zip(want[::2], got[::2]):    # LCM draws differ run to run
+    for a, b in zip(want, got):      # the LCM draws are counter-based
         assert a.n_count == b.n_count > 0
         assert np.array_equal(a.packed_xyz, b.packed_xyz)
-    assert got[1].n_count > 0
 
     rng = np.random.default_rng(0)
     _, _, faces0 = tt.core.odf.half_sphere(tt.sphere_362)
@@ -441,11 +440,12 @@ def test_i6_step_loops_do_not_sync_on_card(monkeypatch):
     made = _guard_launches(monkeypatch, _SyncIsAnError())
     got = _run_three_engines("cuda", "i6")
     assert len(made) >= 4
-    for a, b in zip(got[::2], exact[::2]):          # LCM draws differ
+    for a, b in zip(got, exact):     # the LCM draws are counter-based
         assert a.n_count == b.n_count > 0
         assert np.array_equal(a.npts, b.npts)
-    assert np.abs(got[0].packed_xyz - exact[0].packed_xyz).max() <= \
-        2.0 / _qscale("i6")
+    for a, b in zip(got[:2], exact[:2]):
+        assert np.abs(a.packed_xyz - b.packed_xyz).max() <= \
+            2.0 / _qscale("i6")
     assert np.array_equal(got[2].packed_xyz, exact[2].packed_xyz)
 
 
