@@ -32,13 +32,16 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 - The LCM and microscopy modes (`[modes]` lines): the self-checks of
   their kernels' arithmetic against torch (the window sums of three;
   logf, the Gumbel transform of every uniform, the sum of ten, the
-  argmax and the Philox uniforms); the first chunk of each mode's run,
-  kernel against plain step loop on both directions, bit for bit, one
-  direction timed beside the plain loop with the bound; stream + write
-  of LCM on a 256^2 slice (3 jitters a voxel) and microscopy on 256^2 x 2
-  through the kernels and through the plain loops, .trk byte for byte;
-  microscopy on a 1024^2 x 2 slice through its kernel.  Each kernel
-  launches twice a chunk.
+  argmax and the Philox uniforms); the first chunk of each mode's run
+  (micro: its first 5,698 streams, the plain loop's own chunk, of the
+  kernel's 131,072-stream chunk), kernel against plain step loop on both
+  directions, bit for bit, one direction timed beside the plain loop
+  with the bound, and the micro kernel alone on its whole first chunk;
+  stream + write of LCM on a 256^2 slice (3 jitters a voxel) and
+  microscopy on 256^2 x 2 through the kernels and through the plain
+  loops, .trk byte for byte; microscopy on a 1024^2 x 2 slice through
+  its kernel.  Each kernel launches twice a chunk; every launch of the
+  LCM 256^2 and micro 1024^2 x 2 runs is timed with CUDA events.
 - Wires (`[wire]` lines): the headline pipeline as bench.py:240-261
   writes it (the batch on the u12 upload wire, the points on the i6
   point wire) against the f32 run, and its i6 stream against f32 points
@@ -667,23 +670,31 @@ class plain_loop:
     """Inside the block, the three engines' propagation runs the plain
     step loops (`propagate_dir_plain`, `propagate_lcm_dir_plain`,
     `propagate_micro_dir_plain`) on the card, as the port did before its
-    kernels: for timing beside the kernels, never in the port."""
+    kernels, and the micro mode at the plain loop's chunk (the
+    reference's rule, which sizes its [S, W, 3] window tensors): for
+    timing beside the kernels, never in the port."""
 
     def __enter__(self):
         from fibers_tpu_torch.ops.kernels import (propagate,
                                                   propagate_lcm,
                                                   propagate_micro)
         from fibers_tpu_torch.tract import modes, stream as stream_mod
-        self._slots = [(stream_mod, "propagate_dir", propagate),
-                       (modes, "propagate_lcm_dir", propagate_lcm),
-                       (modes, "propagate_micro_dir", propagate_micro)]
-        self._real = [getattr(mod, name) for mod, name, _ in self._slots]
-        for mod, name, kmod in self._slots:
-            setattr(mod, name, getattr(kmod, name + "_plain"))
+        self._slots = [(stream_mod, "propagate_dir"),
+                       (modes, "propagate_lcm_dir"),
+                       (modes, "propagate_micro_dir"),
+                       (modes, "_micro_chunk")]
+        self._real = [getattr(mod, name) for mod, name in self._slots]
+        plains = [propagate.propagate_dir_plain,
+                  propagate_lcm.propagate_lcm_dir_plain,
+                  propagate_micro.propagate_micro_dir_plain,
+                  lambda cfg, nwin, device: modes._reference_chunk(cfg,
+                                                                   nwin)]
+        for (mod, name), plain in zip(self._slots, plains):
+            setattr(mod, name, plain)
         return self
 
     def __exit__(self, *exc):
-        for (mod, name, _), real in zip(self._slots, self._real):
+        for (mod, name), real in zip(self._slots, self._real):
             setattr(mod, name, real)
 
 
@@ -1971,16 +1982,17 @@ class _Captured(Exception):
     pass
 
 
-def first_chunk_calls(name, run):
-    """The arguments of the first two calls (the first chunk's forward and
-    backward direction) of `tract/modes.py:<name>` in `run()`, which stops
-    there.  The forward call runs, so the backward one gets its counts."""
+def chunk_calls(name, run, last=False):
+    """The arguments of the two calls of `tract/modes.py:<name>` for the
+    first chunk of `run()` (its forward and backward direction; the run
+    stops there), or with `last` for its last chunk (the run goes to its
+    end).  The calls run, so each backward call gets its counts."""
     from fibers_tpu_torch.tract import modes
     real, calls = getattr(modes, name), []
 
     def record(*args):
         calls.append(args)
-        if len(calls) == 2:
+        if len(calls) == 2 and not last:
             raise _Captured
         return real(*args)
 
@@ -1991,8 +2003,9 @@ def first_chunk_calls(name, run):
         pass
     finally:
         setattr(modes, name, real)
-    check(len(calls) == 2, f"{name}: the run made {len(calls)} calls")
-    return calls
+    check(len(calls) >= 2 and len(calls) % 2 == 0,
+          f"{name}: the run made {len(calls)} calls")
+    return calls[-2:]
 
 
 class window_cells:
@@ -2029,14 +2042,69 @@ class window_cells:
         pm._flat_index = self._real
 
 
-def mode_chunk(name, calls):
+def active_steps(npts, npts0, nsteps):
+    """A direction's active stream-steps, on the device: a stream searches
+    at its saved steps (npts - npts0) and at the one after, within the
+    nsteps."""
+    import torch
+    return torch.clamp(npts - npts0 + 1, max=nsteps).sum()
+
+
+class launch_events:
+    """Inside the block, every call of `tract/modes.py:<name>` is
+    bracketed by CUDA events on the current stream (nothing waits for
+    them); after the block, `ms()` gives each call's device time.  With
+    `ni` (npts0's place among the arguments and npts's among the
+    results), `active` holds each call's active stream-steps and `nbytes`
+    its outputs' bytes."""
+
+    def __init__(self, name, ni=None):
+        self.name, self.ni, self.pairs = name, ni, []
+        self.active, self.nbytes = [], 0
+
+    def __enter__(self):
+        import torch
+        from fibers_tpu_torch.tract import modes
+        self._real = real = getattr(modes, self.name)
+
+        def timed(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real(*args)
+            ev[1].record()
+            self.pairs.append(ev)
+            if self.ni is not None:
+                self.active.append(active_steps(out[self.ni], args[self.ni],
+                                                out[1].shape[0]))
+                self.nbytes += sum(t.nbytes for t in out)
+            return out
+
+        setattr(modes, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from fibers_tpu_torch.tract import modes
+        setattr(modes, self.name, self._real)
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]
+
+
+def mode_chunk(name, calls, n=None):
     """[modes] The first chunk of a mode's run (`calls`: its forward and
-    backward calls): the kernel against the plain loop on both directions,
-    bit for bit on every output; the forward direction timed with CUDA
-    events in turns plain / kernel / kernel / plain, beside the bound of
-    its bytes (start state, outputs, the field's voxels it visits) and
-    its operations (the active stream-steps; for micro the in-volume,
-    in-mask window cells of each).  Returns the record."""
+    backward calls), or with `n` its first n streams (every stream's
+    outputs depend only on its own start state): the kernel against the
+    plain loop on both directions, bit for bit on every output; the
+    forward direction timed with CUDA events in turns plain / kernel /
+    kernel / plain, beside the bound of its bytes (start state, outputs,
+    the field's voxels it visits) and its operations (the active
+    stream-steps; for micro the in-volume, in-mask window cells of each).
+    With `n`, also the kernel on the whole chunk, held to the plain loop
+    in slices of n streams, and its forward direction timed beside a
+    bound that estimates its window cells from the slice's cells per
+    active step (`whole_chunk`).  Returns the record."""
     import torch
     from fibers_tpu_torch.ops.kernels import propagate_lcm, propagate_micro
     lcm = name == "lcm"
@@ -2044,6 +2112,10 @@ def mode_chunk(name, calls):
     kern = getattr(kmod, f"propagate_{name}_dir")
     plain = getattr(kmod, f"propagate_{name}_dir_plain")
     ni = 3 if lcm else 2                  # npts0 among the arguments
+    whole = calls
+    if n is not None:                     # the start states' first n rows
+        calls = [tuple(a[:n] if ni - 2 <= i <= ni else a
+                       for i, a in enumerate(c)) for c in calls]
     fwd_args, bwd_args = calls
     fwd, bwd = kern(*fwd_args), kern(*bwd_args)
     torch.cuda.synchronize()
@@ -2112,19 +2184,117 @@ def mode_chunk(name, calls):
         f"{steps} active stream-steps"
         f"{'' if lcm else f', {cells} window cells'}), share "
         f"{100 * rec['bound_ms'] / rec['ms']:.1f}%")
+    if n is not None:
+        rec["full_chunk"] = whole_chunk(kern, plain, whole, n,
+                                        cells / steps, field)
+        rec["cells_per_active_step"] = cells / steps
     return rec
+
+
+def _rows(outs, sl):
+    """The streams `sl` of a direction's outputs (out [nsteps, S, 3],
+    saved [nsteps, S], npts [S], anchor [S, 3])."""
+    return [o[:, sl] for o in outs[:2]] + [o[sl] for o in outs[2:]]
+
+
+def held_in_slices(kern, plain, calls, n, what):
+    """[modes] The micro kernel on a whole chunk of a run (`calls`: its
+    forward and backward calls) against the plain loop over the same
+    chunk in slices of `n` streams, bit for bit on every output of both
+    directions; a stream's outputs depend only on its own start state
+    (tests/test_torch_modes_kernels.py:
+    test_micro_plain_rows_depend_only_on_their_own_stream).  Returns the
+    kernel's forward outputs and the largest |difference|."""
+    ni = 2                                # npts0 among the arguments
+    fwd_args, bwd_args = calls
+    fwd, bwd = kern(*fwd_args), kern(*bwd_args)
+    s = fwd_args[0].shape[0]
+    err, t0 = 0.0, time.time()
+    for lo in range(0, s, n):
+        sl = slice(lo, min(lo + n, s))
+        fp, bp = ([a[sl] if i <= ni else a for i, a in enumerate(c)]
+                  for c in calls)
+        fwd_p = plain(*fp)
+        bwd_p = plain(*bp[:ni], fwd_p[ni], *bp[ni + 1:])
+        ours, refs = _rows(fwd, sl) + _rows(bwd, sl), fwd_p + bwd_p
+        same = [_same_bits(a, b) for a, b in zip(ours, refs)]
+        err = max(err, _max_err(ours, refs))
+        check(all(same), f"micro {what}: the kernel differs from the plain "
+              f"loop on streams {sl.start}-{sl.stop - 1} of {s} (outputs of "
+              f"both directions equal: {same}; max|d| {err})")
+    log(f"[modes] micro {what}: {s} streams: kernel bit-equal to the plain "
+        f"loop on both directions, the plain loop in {-(-s // n)} slices "
+        f"of {n} streams ({time.time() - t0:.1f} s)")
+    return fwd, err
+
+
+def whole_chunk(kern, plain, calls, n, per_step, field):
+    """[modes] The micro kernel on a whole chunk (`calls`), held to the
+    plain loop in slices of `n` streams (`held_in_slices`); then its
+    forward direction timed, CUDA events over three launches after a
+    warm one, beside a bound whose window cells are an estimate: the
+    chunk's active stream-steps (from its counts) times `per_step`, the
+    cells per active step of the slice the plain loop ran; its bytes: the
+    start state, the outputs and the slice's `field` bytes.  Returns the
+    record."""
+    import torch
+    ni, args = 2, calls[0]
+    out, err = held_in_slices(kern, plain, calls, n, "whole chunk")
+    steps = int(active_steps(out[ni], args[ni], out[1].shape[0]))
+    nbytes = (sum(t.nbytes for t in args[:ni + 1])
+              + sum(t.nbytes for t in out) + field)
+    del out
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: kern(*args), 3)
+    torch.cuda.empty_cache()
+    cells = steps * per_step
+    flops = cells * MICRO_FLOPS_CELL + steps * MICRO_FLOPS_STEP
+    rec = dict(streams=int(args[0].shape[0]), ms=ms, max_abs_err=err,
+               active_steps=steps, window_cells_estimate=cells,
+               nbytes=nbytes, flops=flops, **bound_ms(nbytes, flops))
+    log(f"[modes] micro whole chunk: {rec['streams']} streams: kernel "
+        f"{ms:.3f} ms a direction; estimated bound {rec['bound_ms']:.4f} ms "
+        f"by {rec['bound_by']} ({steps} active stream-steps x "
+        f"{per_step:.1f} cells of the slice's, {flops / 1e9:.3f} GFLOP; "
+        f"{nbytes / 1e6:.1f} MB), share "
+        f"{100 * rec['bound_ms'] / ms:.1f}%")
+    return rec
+
+
+def run_estimate(ev, ms, rec):
+    """[modes] The micro run's bound, an estimate: its active
+    stream-steps (`ev.active`, from every launch's counts) times the
+    slice's window cells per active step; its bytes the launches'
+    outputs.  Against the sum `ms` of the launches' times."""
+    steps = int(sum(int(a) for a in ev.active))
+    cells = steps * rec["cells_per_active_step"]
+    flops = cells * MICRO_FLOPS_CELL + steps * MICRO_FLOPS_STEP
+    out = dict(active_steps=steps, window_cells_estimate=cells,
+               nbytes=ev.nbytes, flops=flops,
+               **bound_ms(ev.nbytes, flops))
+    log(f"[modes] micro run: estimated bound {out['bound_ms']:.3f} ms by "
+        f"{out['bound_by']} ({steps} active stream-steps x "
+        f"{rec['cells_per_active_step']:.1f} cells, {flops / 1e9:.2f} "
+        f"GFLOP; {ev.nbytes / 1e9:.3f} GB of outputs) against the "
+        f"launches' sum {ms:.3f} ms, share {100 * out['bound_ms'] / ms:.1f}%")
+    return out
 
 
 def phase_modes():
     """[modes] The LCM and microscopy modes through their kernels: the
     self-checks of the kernels' arithmetic against torch on the card; the
     first chunk of each mode's run, kernel against plain loop
-    (`mode_chunk`); stream + write on LCM_SIDE^2 (3 jitters a voxel) and
+    (`mode_chunk`; micro on the plain loop's chunk, the first streams of
+    the kernel's, then on the kernel's whole first and last chunks in
+    slices of the plain loop's); stream + write on LCM_SIDE^2 (3 jitters a voxel) and
     PLAIN_SIDE^2 x 2 microscopy through the kernels and through the plain
     loops, their .trk files byte for byte; microscopy on MICRO_SIDE^2 x 2
-    through the kernel.  Each run's .trk is read back and checked; each
-    kernel launches twice a chunk.  Returns ({mode: record}, {mode:
-    launches of the kernels on its run through them})."""
+    through the kernel, every launch of the LCM and micro runs timed
+    (`launch_events`) and the micro run's bound estimated
+    (`run_estimate`).  Each run's .trk is read back and checked; each
+    kernel launches twice a chunk of the chunk the run took.  Returns
+    ({mode: record}, {mode: launches of the kernels on its run through
+    them})."""
     import numpy as np
     import fibers_tpu_torch as tt
     from fibers_tpu_torch.ops.kernels.propagate_lcm import lcm_selfcheck
@@ -2150,6 +2320,12 @@ def phase_modes():
     nseeds = dict(lcm=3 * int((lmask.vol > 0).sum()),
                   micro=int((bseed.vol > 0).sum()))
     sizes = dict(lcm=f"{LCM_SIDE}^2", micro=f"{MICRO_SIDE}^2 x 2")
+    # the micro kernel is held to the plain loop on the plain loop's own
+    # chunk (the reference's rule: 5,698 streams at W = 748), the first
+    # streams of the kernel's first chunk, then in slices of that size
+    from fibers_tpu_torch.tract.modes import _reference_chunk, _search_window
+    micro_slice = _reference_chunk(tt.StreamConfig(), len(_search_window(
+        (15, 15, 0))[0]))
     runs = dict(
         lcm=lambda trk=None: tt.stream(ovecs, mask=lmask, lcms=lcm, nsub=3,
                                        trk_sink=trk),
@@ -2160,10 +2336,21 @@ def phase_modes():
                                          search_dist=15, trk_sink=trk,
                                          **MICRO))
     records = {
-        "lcm": mode_chunk("lcm", first_chunk_calls("propagate_lcm_dir",
+        "lcm": mode_chunk("lcm", chunk_calls("propagate_lcm_dir",
                                                    runs["lcm"])),
-        "micro": mode_chunk("micro", first_chunk_calls(
-            "propagate_micro_dir", runs["micro"]))}
+        "micro": mode_chunk("micro", chunk_calls(
+            "propagate_micro_dir", runs["micro"]), micro_slice)}
+    # and on the whole of the run's last (ragged) chunk
+    from fibers_tpu_torch.ops.kernels import propagate_micro as pm
+    micro = records["micro"]
+    last = chunk_calls("propagate_micro_dir", runs["micro"], last=True)
+    micro["last_chunk_streams"] = int(last[0][0].shape[0])
+    _, err = held_in_slices(pm.propagate_micro_dir,
+                            pm.propagate_micro_dir_plain, last, micro_slice,
+                            "last chunk")
+    del last
+    micro["max_abs_err"] = max(micro["max_abs_err"],
+                               micro["full_chunk"]["max_abs_err"], err)
     launches = {}
     with tempfile.TemporaryDirectory() as d:
         for name in ("lcm", "micro256"):
@@ -2178,18 +2365,24 @@ def phase_modes():
             trk = os.path.join(d, f"{name}.trk")
             reset_counts()
             t1 = time.time()
-            tract = runs[name](trk)
+            with launch_events(f"propagate_{name}_dir",
+                               None if name == "lcm" else 2) as ev:
+                tract = runs[name](trk)
             t = time.time() - t1
             counts = read_counts()
+            per = ev.ms()
             size = os.path.getsize(trk)
             back = tt.trk_read(trk)
             npts = int(np.sum(tract.npts))
             kname = f"propagate_{name}_dir"
-            want = 2 * -(-nseeds[name] // records[name]["streams"])
+            chunk = records[name].get("full_chunk", records[name])["streams"]
+            want = 2 * -(-nseeds[name] // chunk)
             log(f"[modes] {name} {sizes[name]}: {nseeds[name]} seeds, "
                 f"{tract.n_count} streams, {npts} points, .trk "
                 f"{size / 1e9:.3f} GB, stream+write {t:.3f} s; launches "
-                f"{counts}")
+                f"{counts}; the kernel's {len(per)} launches (CUDA events "
+                f"each) sum {sum(per):.3f} ms, min {min(per):.3f}, max "
+                f"{max(per):.3f}")
             check(tract.n_count > 0, f"no {name} streamlines")
             check(back.n_count == tract.n_count
                   and int(np.sum(back.npts)) == npts,
@@ -2206,6 +2399,11 @@ def phase_modes():
             del back, tract
             os.remove(trk)
             records[name]["stream_write_s"] = t
+            records[name]["run_launch_ms"] = dict(
+                n=len(per), sum=sum(per), min=min(per), max=max(per))
+            if name == "micro":
+                records[name]["run_estimate"] = run_estimate(
+                    ev, sum(per), records[name])
             records[name]["trk_bytes"] = size
             launches[name] = counts
     log(f"[modes] phase {time.time() - t0:.1f} s")

@@ -46,6 +46,15 @@ __device__ __forceinline__ long long flat_index(long long ix, long long iy,
     return inb ? (ix * ny + iy) * nz + iz : 0;
 }
 
+// The same in 32-bit arithmetic, for a volume of fewer than 2^31 voxels
+// (then every in-volume index fits an int).
+__device__ __forceinline__ int flat_index(int ix, int iy, int iz, int nx,
+                                          int ny, int nz, bool& inb)
+{
+    inb = ix >= 0 && ix < nx && iy >= 0 && iy < ny && iz >= 0 && iz < nz;
+    return inb ? (ix * ny + iy) * nz + iz : 0;
+}
+
 // torch.argmax's rule for taking element k over the best so far: a NaN
 // beats any number, the lower index wins among equals and among NaNs.
 __device__ __forceinline__ bool argmax_takes(float best, float v)

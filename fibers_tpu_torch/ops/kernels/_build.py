@@ -149,7 +149,8 @@ def _declare(lib):
     lib.propagate_sum3_selfcheck.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.propagate_sum3_selfcheck.restype = ci
     lib.propagate_micro_launch.argtypes = ([vp] * 7 + [ci] * 6 + [cf] * 5
-                                           + [ci] * 3 + [cf] * 3 + [vp] * 5)
+                                           + [ci] * 3 + [cf] * 3 + [vp] * 5
+                                           + [ci, vp])
     lib.propagate_micro_launch.restype = ci
     ll, cu = ctypes.c_longlong, ctypes.c_uint
     lib.propagate_micro_window_selfcheck.argtypes = [vp] * 3 + [ll] * 3 + [vp]

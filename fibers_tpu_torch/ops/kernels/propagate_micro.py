@@ -7,9 +7,11 @@ Counterpart of `fibers_tpu/tract/modes.py:_propagate_micro`, the jitted
 chunk advance `nsteps` steps: each step looks at the window of W cells
 around the tentative voxel and jumps to the in-mask, in-cone cell whose
 first vector is best aligned with the current direction.  The kernel is
-`fibers_tpu_torch/csrc/propagate_micro.cu`: one warp per stream, its
-lanes splitting the window, so a direction is one launch where the plain
-loop makes a few dozen a step over [S, W] tensors.
+`fibers_tpu_torch/csrc/propagate_micro.cu`: persistent warps, each taking
+the next stream when its own one stops, with the window in shared memory,
+the cone test before any gather and the frozen tails of stopped streams
+written 32 streams at a time, so a direction is one launch where the
+plain loop makes a few dozen a step over [S, W] tensors.
 
 A CUDA tensor always goes to the kernel, or raises.  A CPU tensor goes to
 `propagate_micro_dir_plain`, the step loop in torch operations.  On the
@@ -28,6 +30,18 @@ from .propagate import (_INT32_MAX, _check_array, _check_step_loop,
 
 __all__ = ["propagate_micro_dir", "propagate_micro_dir_plain",
            "window_selfcheck"]
+
+
+def _index_bits(shape3) -> int:
+    """The kernel's index arithmetic for a volume of `shape3`: 32-bit when
+    it holds fewer than 2^31 voxels and each dimension is below 2^29 (the
+    kernel then clamps a voxel coordinate to +-2^30 and takes no window
+    offset of 2^29 or more, which keeps every window cell of a farther
+    coordinate outside the volume), else 64-bit."""
+    if int(np.prod([int(n) for n in shape3])) < 2 ** 31 \
+            and max(int(n) for n in shape3) < 2 ** 29:
+        return 32
+    return 64
 
 
 def propagate_micro_dir_plain(pos0, vec0, npts0, mask_flat, vec_first,
@@ -112,12 +126,12 @@ def propagate_micro_dir(pos0, vec0, npts0, mask_flat, vec_first, win_off,
     mask_flat [nx*ny*nz] bool, vec_first [nx*ny*nz, 3] f32 (each voxel's
     first orientation vector) and the search window's W >= 1 cells,
     win_off [W, 3] int64 offsets and win_dir [W, 3] f32 unit directions
-    (`tract/modes.py:_search_window`), all contiguous.  A cell counts when
-    it lies in the volume and the mask and its direction is within the
-    search cone (cos > search_cosang); the stream jumps to the one whose
-    vector has the largest |cos| to its direction (the first on ties) and
-    stops when none counts, when that angle passes cosang_thresh or when
-    its line holds more than len_max points.
+    (`tract/modes.py:_search_window`), all contiguous.  A cell counts
+    when it lies in the volume and the mask and its direction is within
+    the search cone (cos > search_cosang); the stream jumps to the one
+    whose vector has the largest |cos| to its direction (the first on
+    ties) and stops when none counts, when that angle passes
+    cosang_thresh or when its line holds more than len_max points.
 
     emit="points": out is the saved float32 positions.  emit="deltas":
     out is the int8 error-feedback step deltas at 1/qscale voxel, clipped
@@ -126,7 +140,9 @@ def propagate_micro_dir(pos0, vec0, npts0, mask_flat, vec_first, win_off,
     Returns (out [nsteps, S, 3], saved [nsteps, S] bool, npts_total [S]
     int32, anchor [S, 3] f32), as `propagate_dir`.  On the card: one
     launch on the current stream of the tensors' device, nothing read
-    back."""
+    back: the launch clears the counters of a scratch buffer allocated
+    here (the next stream, the stopped streams of each group of 32) on
+    that stream, then runs the kernel."""
     _check(pos0, vec0, npts0, mask_flat, vec_first, win_off, win_dir, nsteps,
            shape3, emit, dmax)
     args = (nsteps, shape3, step_size, cosang_thresh, search_cosang,
@@ -148,6 +164,8 @@ def propagate_micro_dir(pos0, vec0, npts0, mask_flat, vec_first, win_off,
         npts.copy_(npts0)
         anchor.copy_(pos0)
         return out, saved, npts, anchor
+    scratch = torch.empty(1 + (s + 31) // 32 + s, dtype=torch.int32,
+                          device=dev)
     from ._build import load_library
     lib = load_library()
     f32 = np.float32
@@ -164,7 +182,8 @@ def propagate_micro_dir(pos0, vec0, npts0, mask_flat, vec_first, win_off,
             int(smooth_coeff != 0.0), min(int(len_max), _INT32_MAX),
             int(deltas), f32(qscale), f32(1.0 / qscale), f32(dmax),
             out.data_ptr(), saved.data_ptr(), npts.data_ptr(),
-            anchor.data_ptr(), stream)
+            anchor.data_ptr(), scratch.data_ptr(), _index_bits(shape3),
+            stream)
     if err != 0:
         raise RuntimeError(f"propagate_micro_dir: kernel launch failed with "
                            f"cudaError {err} (S={s}, nsteps={nsteps}, "

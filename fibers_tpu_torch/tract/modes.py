@@ -174,6 +174,23 @@ def _micro_wire(wire, cfg, nsub, step_size):
     return "f32", "points", qscale, dmax
 
 
+def _reference_chunk(cfg, nwin):
+    """The reference's micro chunk for a window of `nwin` cells
+    (fibers_tpu/tract/modes.py:441): `cfg.chunk` shrunk W // 32 times to
+    size the plain loop's [S, W, 3] window tensors."""
+    return max(256, cfg.chunk // max(1, nwin // 32))
+
+
+def _micro_chunk(cfg, nwin, device):
+    """Streams a chunk of the micro mode on `device`: the kernel on the
+    card builds no window tensor and takes `cfg.chunk`; the plain loop on
+    the CPU takes the reference's rule (`_reference_chunk`).  Micro lines
+    have no draws: they do not depend on the chunk."""
+    if device.type == "cuda":
+        return cfg.chunk
+    return _reference_chunk(cfg, nwin)
+
+
 def stream_micro(work, seed, wire):
     """Driver for microscopy cone-search tractography over a
     `StreamWork` of host orientation volumes, with the point wire `wire`
@@ -204,8 +221,7 @@ def stream_micro(work, seed, wire):
             float(np.cos(np.radians(cfg.search_ang))),
             float(work.smooth_coeff), int(work.len_max), emit, qscale, dmax)
 
-    # the windowed gather is W times heavier; shrink the chunk
-    chunk = max(256, cfg.chunk // max(1, len(win_off) // 32))
+    chunk = _micro_chunk(cfg, len(win_off), dev)
 
     def launch(lo):
         hi = min(lo + chunk, len(seeds_all))

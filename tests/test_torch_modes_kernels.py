@@ -61,11 +61,22 @@ def _t(a):
 # Microscopy
 # ------------------------------------------------------------------ #
 
-def _micro_inputs(case, shape3=None, nan=False, n_seeds=None):
+# shifts of far window cells: each a copy of the window, its directions
+# reversed, ahead of it
+FAR = ((2 ** 32, 0, 0), (0, -2 ** 32, 0), (2 ** 29, 0, 0), (0, 0, -2 ** 31),
+       (0, 2 ** 33, 0))
+
+
+def _micro_inputs(case, shape3=None, nan=False, n_seeds=None, sd=None,
+                  tie=False, search=None, no_mask=False, far=False):
     """(numpy) pos0, vec0, mask_flat, vec_first, win_off, win_dir and the
     step loop's scalars from nsteps to len_max: the microscopy phantom's
     angles with a 2-D window, or a random field biased along +x with a 3-D
-    window; integer seeds, each with its voxel's first vector."""
+    window; integer seeds, each with its voxel's first vector.  `sd`: the
+    window's search distance; `tie`: every voxel's vector +x; `search`:
+    the cone's half-angle in degrees; `no_mask`: the mask all false after
+    the seeds are taken; `far`: copies of the window `FAR` away ahead of
+    it, with reversed directions."""
     rng = np.random.default_rng(3)
     if case == "field":
         shape3 = shape3 or (40, 36, 2)
@@ -73,23 +84,50 @@ def _micro_inputs(case, shape3=None, nan=False, n_seeds=None):
         a = ang.vol.reshape(-1)
         vf = np.stack([np.cos(a), np.sin(a), np.zeros_like(a)], 1)
         m = (mask.vol > 0).reshape(-1)
-        sd = (6, 6, 0)
+        sd = sd or (6, 6, 0)
     else:
         shape3 = shape3 or (24, 20, 14)
         vf = rng.standard_normal((int(np.prod(shape3)), 3)) + [1.5, 0, 0]
         vf /= np.linalg.norm(vf, axis=1, keepdims=True)
         m = rng.random(len(vf)) < 0.9
-        sd = (2, 2, 2)
+        sd = sd or (2, 2, 2)
+    if tie:
+        vf[:] = [1.0, 0.0, 0.0]
     vf = (vf * m[:, None]).astype(np.float32)
     if nan:
         vf[rng.random(len(vf)) < 0.02] = np.nan
     off, wdir = _search_window(sd)
+    if far:
+        off = np.concatenate([off.astype(np.int64) + f for f in FAR]
+                             + [off])
+        wdir = np.concatenate([-wdir] * len(FAR) + [wdir])
     seeds = np.argwhere(m.reshape(shape3))[::2][:n_seeds].astype(np.float32)
     flat = np.ravel_multi_index(seeds.astype(np.int64).T, shape3)
+    if no_mask:
+        m = np.zeros_like(m)
     nsteps, len_max = 24, 20
-    ang, search = (20.0, 10.0) if case == "field" else (70.0, 30.0)
+    ang, cone = (20.0, 10.0) if case == "field" else (70.0, 30.0)
+    cone = cone if search is None else search
     scal = (nsteps, shape3, 1.0, float(np.cos(np.radians(ang))),
-            float(np.cos(np.radians(search))), 0.0, len_max)
+            float(np.cos(np.radians(cone))), 0.0, len_max)
+    return seeds, vf[flat], m, vf, off, wdir, scal
+
+
+def _micro_long_lines(n_seeds=2000, shape3=(6000, 40, 2)):
+    """`_micro_inputs` for lines whose lengths spread over every step of
+    1,026: a +x field with 1 degree of in-plane jitter along a 6,000-voxel
+    strip, the seeds anywhere on it, a 2-D window, len_max 1,024."""
+    rng = np.random.default_rng(4)
+    a = np.radians(rng.normal(0.0, 1.0, int(np.prod(shape3))))
+    vf = np.stack([np.cos(a), np.sin(a), np.zeros_like(a)],
+                  1).astype(np.float32)
+    m = np.ones(len(vf), bool)
+    seeds = np.stack([rng.integers(0, n, n_seeds) for n in shape3],
+                     1).astype(np.float32)
+    flat = np.ravel_multi_index(seeds.astype(np.int64).T, shape3)
+    off, wdir = _search_window((6, 6, 0))
+    scal = (1026, shape3, 1.0, float(np.cos(np.radians(20.0))),
+            float(np.cos(np.radians(10.0))), 0.0, 1024)
     return seeds, vf[flat], m, vf, off, wdir, scal
 
 
@@ -127,6 +165,104 @@ def test_micro_plain_equals_jax(case, wire):
     total = got[6]
     # the lines jump several times; some reach the budget or stop at once
     assert total.max() > 8 and (total <= 2).any() and total.mean() > 3
+
+
+@pytest.mark.parametrize("case", ["field", "random"])
+def test_micro_plain_rows_depend_only_on_their_own_stream(case):
+    """The plain loop over a permuted third of the streams gives those
+    streams' rows of the whole run, bit for bit on all eight outputs: the
+    premise of the kernel's persistent warps, which take the streams in
+    any order, and of chip_smoke.py's check on the first streams of a
+    chunk."""
+    pos0, vec0, m, vf, off, wdir, scal = _micro_inputs(case)
+    full = _both_micro(_micro_plain, (pos0, vec0, m, vf, off, wdir, scal),
+                       "f32")
+    idx = np.random.default_rng(5).permutation(len(pos0))[:len(pos0) // 3]
+    part = _both_micro(_micro_plain, (pos0[idx], vec0[idx], m, vf, off,
+                                      wdir, scal), "f32")
+    for i, (f, p) in enumerate(zip(full, part)):
+        want = f[:, idx] if i % 4 < 2 else f[idx]
+        assert p.dtype == want.dtype and np.array_equal(p, want)
+    assert full[6].max() > 8
+
+
+@pytest.mark.parametrize("nwin", [748, 136, 20, 3000])
+def test_micro_chunk_follows_the_step_function(nwin):
+    """The kernel on the card takes the configured chunk; the plain loop
+    on the CPU the reference's rule (fibers_tpu/tract/modes.py:441),
+    which sizes its [S, W, 3] window tensors, and so does the plain loop
+    on the card, where chip_smoke.py's `plain_loop` puts
+    `_reference_chunk` in `_micro_chunk`'s place."""
+    for cfg in (tt.StreamConfig(), tt.StreamConfig(chunk=10_000)):
+        rule = max(256, cfg.chunk // max(1, nwin // 32))
+        assert modes._reference_chunk(cfg, nwin) == rule
+        assert modes._micro_chunk(cfg, nwin, torch.device("cpu")) == rule
+        assert modes._micro_chunk(cfg, nwin,
+                                  torch.device("cuda")) == cfg.chunk
+    assert modes._reference_chunk(tt.StreamConfig(), 748) == 5698
+
+
+@pytest.mark.parametrize("wire", ["f32", "i8"])
+def test_micro_lines_do_not_depend_on_the_chunk(wire, tmp_path,
+                                                monkeypatch):
+    """stream() on the CPU at the reference's chunk (one chunk here) and
+    at chunks of 150 streams: the same lines and the same .trk bytes.
+    Micro lines have no draws (LCM's depend on the chunk: ROADMAP C16)."""
+    ov, mask = make_micro_field((40, 36, 2))
+    kw = dict(mask=mask, search_dist=6, len_max=30, nsub=None,
+              ang_thresh=None, step_size=None, smooth_coeff=None, wire=wire,
+              device="cpu")
+    one = tt.stream(ov, **kw)
+    tt.stream(ov, trk_sink=str(tmp_path / "one.trk"), **kw)
+    monkeypatch.setattr(modes, "_micro_chunk", lambda *a: 150)
+    calls = PM.propagate_micro_dir_plain
+    seen = []
+    monkeypatch.setattr(modes, "propagate_micro_dir",
+                        lambda *a: seen.append(len(a[0])) or calls(*a))
+    many = tt.stream(ov, **kw)
+    tt.stream(ov, trk_sink=str(tmp_path / "many.trk"), **kw)
+    assert len(seen) > 2 and max(seen) == 150
+    assert one.n_count == many.n_count > 0
+    assert np.array_equal(one.npts, many.npts)
+    assert np.array_equal(one.packed_xyz, many.packed_xyz)
+    assert ((tmp_path / "one.trk").read_bytes()
+            == (tmp_path / "many.trk").read_bytes())
+
+
+@pytest.mark.parametrize("shape3, bits", [
+    ((1024, 1024, 2), 32), ((1290, 1290, 1290), 32),
+    ((2048, 1024, 1024), 64), ((1291, 1291, 1291), 64),
+    ((2 ** 29 - 1, 3, 1), 32), ((2 ** 29, 2, 1), 64), ((2 ** 31, 1, 1), 64)])
+def test_micro_kernel_index_bits(shape3, bits):
+    """The wrapper's choice of the kernel's index arithmetic: 32-bit below
+    2^31 voxels with each dimension below 2^29, else 64-bit."""
+    assert PM._index_bits(shape3) == bits
+
+
+def _int32_wrap(off):
+    """Offsets as an int32 cast would hold them."""
+    return (off + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+@pytest.mark.parametrize("wire", ["f32", "int"])
+@pytest.mark.parametrize("case", ["field", "random"])
+def test_micro_far_cells_never_count(case, wire):
+    """Window cells 2^29 to 2^33 voxels away (`_micro_inputs(far=True)`)
+    change no output: from a voxel in the volume they lie outside it, and
+    from one outside nothing is saved.  The kernel takes such a cell as
+    padding.  Held as an int32 would hold them, they would land back in
+    the volume and change the lines, which the `cuda` case "far" would
+    catch."""
+    near = _micro_inputs(case)
+    far = _micro_inputs(case, far=True)
+    assert len(far[4]) > len(near[4]) and np.abs(far[4]).max() >= 2 ** 32
+    got = _both_micro(_micro_plain, far, wire)
+    want = _both_micro(_micro_plain, near, wire)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    wrapped = far[:4] + (_int32_wrap(far[4]),) + far[5:]
+    moved = _both_micro(_micro_plain, wrapped, wire)
+    assert not all(np.array_equal(m, w) for m, w in zip(moved, want))
 
 
 # ------------------------------------------------------------------ #
@@ -517,17 +653,36 @@ def test_lcm_arithmetic_on_card(cuda):
         log=0, gumbel=0, sum10=0, argmax10=0, uniforms=0)
 
 
+MICRO_CARD = {
+    "field": lambda: _micro_inputs("field", (200, 180, 2)),
+    "budget": lambda: _micro_inputs("field", (200, 180, 2), n_seeds=33),
+    "random": lambda: _micro_inputs("random", (30, 26, 20)),
+    "nan": lambda: _micro_inputs("random", (30, 26, 20), nan=True),
+    # lines ending at every step of 1,026
+    "lengths": _micro_long_lines,
+    # ~50k streams: more than the card holds warps, so warps take streams
+    # as others stop
+    "many": lambda: _micro_inputs("field", (300, 240, 2)),
+    # a 3-D window of 2,552 cells: two shared-memory tiles, the second
+    # ragged
+    "tiled": lambda: _micro_inputs("random", (30, 26, 20), sd=(8, 8, 8),
+                                   n_seeds=2000),
+    "narrow": lambda: _micro_inputs("random", (30, 26, 20), sd=(1, 1, 1)),
+    # every cell the same vector: the lowest cell wins
+    "ties": lambda: _micro_inputs("random", (30, 26, 20), tie=True),
+    "no_cone": lambda: _micro_inputs("random", (30, 26, 20), search=0.0),
+    "no_mask": lambda: _micro_inputs("random", (30, 26, 20), no_mask=True),
+    # window cells 2^29 to 2^33 voxels away, which never count
+    "far": lambda: _micro_inputs("field", (200, 180, 2), far=True),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wire", ["f32", "int"])
-@pytest.mark.parametrize("case", ["field", "random", "nan", "budget"])
+@pytest.mark.parametrize("case", sorted(MICRO_CARD))
 def test_micro_kernel_equals_plain_on_card(cuda, case, wire):
     """Both directions: the eight outputs bit-equal; one launch each."""
-    if case == "field":
-        inp = _micro_inputs("field", (200, 180, 2))
-    elif case == "budget":
-        inp = _micro_inputs("field", (200, 180, 2), n_seeds=33)
-    else:
-        inp = _micro_inputs("random", (30, 26, 20), nan=case == "nan")
+    inp = MICRO_CARD[case]()
     pos0, vec0, m, vf, off, wdir, scal = inp
     t = [_t(a).to(cuda) for a in (pos0, vec0, m, vf, off.astype(np.int64),
                                   wdir)]
@@ -544,7 +699,19 @@ def test_micro_kernel_equals_plain_on_card(cuda, case, wire):
     bwd_p = PM.propagate_micro_dir_plain(t[0], -t[1], fwd_p[2], *rest)
     for g, w in zip(fwd + bwd, fwd_p + bwd_p):
         assert _same_bits(g, w)
-    assert int(bwd[2].max()) > 3
+    if case in ("no_cone", "no_mask"):
+        assert int(bwd[2].max()) == 0
+    else:
+        assert int(bwd[2].max()) > 3
+    if case == "lengths":
+        n = fwd[2]
+        assert int(n.min()) < 20 and int(n.max()) > 900
+    elif case == "many":
+        assert len(pos0) >= 20_000
+    elif case == "tiled":
+        assert len(off) > 2048 and len(off) % 32
+    elif case == "narrow":
+        assert len(off) < 32
 
 
 @pytest.mark.cuda
