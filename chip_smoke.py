@@ -377,6 +377,7 @@ def pipeline(dwi, mask, seed, device, trk, mesh=None, wire="f32",
     synchronize)."""
     import torch
     import fibers_tpu_torch as tt
+    from fibers_tpu_torch.tract.stream import writer_times
 
     def sync():
         if mesh is not None or torch.device(device).type == "cuda":
@@ -398,10 +399,14 @@ def pipeline(dwi, mask, seed, device, trk, mesh=None, wire="f32",
     t["fit"] = time.time() - t0
     t1 = time.time()
     pk1 = tt.peaks_to_ovecs(gqi, device=True).first(1)
+    writer_times.reset()
     tract = tt.stream(pk1, fa=dti.fa, mask=mask, seed=seed, nsub=3,
                       f_thresh=0.0, wire=point_wire, trk_sink=trk, mesh=mesh)
     t["stream+write"] = time.time() - t1
     t["total"] = time.time() - t0
+    # the .trk writer thread's seconds, and the stream loop's wait on it
+    t["writer busy"], t["writer stall"] = writer_times.busy, \
+        writer_times.stall
     return dti, gqi, tract, t
 
 
@@ -620,12 +625,17 @@ class sink_seconds:
     """Host seconds spent in the .trk sink's appends while the block runs:
     the float32 records' packing (`TrkSink.append`) or the delta wires'
     fused native decode into records (`append_deltas`, `append_deltas6`),
-    file writes included.  `fused` counts the fused calls."""
+    file writes included; they run on the stream's writer thread.
+    `fused` counts the fused calls; `busy` and `stall` are the writer
+    thread's seconds (decode, packing, write) and the stream loop's wait
+    on it (`tract/stream.py:writer_times`)."""
 
     NAMES = ("append", "append_deltas", "append_deltas6")
 
     def __enter__(self):
         from fibers_tpu_torch.io.trk import TrkSink
+        from fibers_tpu_torch.tract.stream import writer_times
+        writer_times.reset()
         self.seconds, self.fused = 0.0, 0
         self._saved = {n: getattr(TrkSink, n) for n in self.NAMES}
 
@@ -645,6 +655,8 @@ class sink_seconds:
 
     def __exit__(self, *exc):
         from fibers_tpu_torch.io.trk import TrkSink
+        from fibers_tpu_torch.tract.stream import writer_times
+        self.busy, self.stall = writer_times.busy, writer_times.stall
         for name, fn in self._saved.items():
             setattr(TrkSink, name, fn)
 
@@ -959,15 +971,18 @@ def kernel_vs_plain(name, run, d, tag="[propagate]"):
     first, byte for byte.  Returns (kernel seconds, both runs; plain
     seconds; the kernels' launches in the first run)."""
     import torch
-    times, paths = [], []
+    from fibers_tpu_torch.tract.stream import writer_times
+    times, paths, writer = [], [], []
     for i, plain in enumerate((False, True, False)):
         trk = os.path.join(d, f"{name}_{i}.trk")
         reset_counts()
+        writer_times.reset()
         t0 = time.time()
         with plain_loop() if plain else contextlib.nullcontext():
             run(trk)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
+        writer.append(f"{writer_times.busy:.3f} / {writer_times.stall:.3f}")
         if i == 0:
             counts = read_counts()
         paths.append(trk)
@@ -977,8 +992,9 @@ def kernel_vs_plain(name, run, d, tag="[propagate]"):
     log(f"{tag} {name} stream+write: kernel {times[0]:.3f} / "
         f"{times[2]:.3f} s, plain loop {times[1]:.3f} s; .trk of the plain "
         f"loop {'byte-equal' if equal[0] else 'DIFFERS'}, of the kernel's "
-        f"second run {'byte-equal' if equal[1] else 'DIFFERS'}; launches "
-        f"{counts}")
+        f"second run {'byte-equal' if equal[1] else 'DIFFERS'}; .trk writer "
+        f"thread busy / the loop's stall on it: kernel {writer[0]} s, "
+        f"{writer[2]} s, plain loop {writer[1]} s; launches {counts}")
     check(all(equal), f"{name}: the .trk through the kernel differs from "
           "the plain loop's")
     return (times[0], times[2]), times[1], counts
@@ -989,7 +1005,7 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
     batch on the u12 wire, the stream on the i6 wire into a .trk, its
     step loops under `launches_must_not_sync`.  Held against run 2 of the
     f32 pipeline of the same call (`ref`, its stage times `t_ref`, its
-    sink's host seconds `sink_ref`): the GQI ODF within rtol 1e-3 / atol
+    sink's `sink_seconds` `sink_ref`): the GQI ODF within rtol 1e-3 / atol
     1e-5 (tests/test_transfer.py:98-116), FA within 1e-3 on 90% of the
     mask (on this phantom's near-zero DWI samples along the fibres a
     grid step of max/4095 moves the log-linear fit: the JAX package's
@@ -1060,8 +1076,11 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
         f"against f32 {t_ref['stream+write']:.3f} s (run 2) and "
         f"{t_f:.3f} s (the same peaks); .trk sink host time (i6: fused "
         f"decode into records, {sk.fused} calls; f32: record packing) i6 "
-        f"{sk.seconds:.3f} s against f32 {sink_ref:.3f} s (run 2) and "
-        f"{sk_f.seconds:.3f} s (the same peaks)")
+        f"{sk.seconds:.3f} s against f32 {sink_ref.seconds:.3f} s (run 2) "
+        f"and {sk_f.seconds:.3f} s (the same peaks); the writer thread "
+        f"busy / the loop's stall on it i6 {sk.busy:.3f} / {sk.stall:.3f} "
+        f"s, f32 {sink_ref.busy:.3f} / {sink_ref.stall:.3f} s (run 2) and "
+        f"{sk_f.busy:.3f} / {sk_f.stall:.3f} s (the same peaks)")
     log(f"[wire] device launches and copies of a {min(len(vox), CHUNK)}-"
         f"seed chunk's propagation: through the kernel f32 "
         f"{per_step['f32']['kernel_chunk']} and i6 "
@@ -1126,7 +1145,7 @@ def phase_main(mesh):
         mesh_launches = phase_mesh_main(dwi, mask, seed, mesh,
                                         (dti, gqi, tract), back, t, d)
         wire_launches = phase_wire_main(dwi, mask, seed, (dti, gqi, tract),
-                                        t, sk.seconds, d)
+                                        t, sk, d)
     launches = counts["gqi_fused"]
     nprop = stream_chunks(3 * int((seed.vol > 0).sum()))
     npts = int(np.sum(tract.npts))
@@ -1469,14 +1488,17 @@ def phase_rumba(dwi, mask, ax, mesh):
     seed = _seed_mask(mask, 1_000_000)
     pk = tt.peaks_to_ovecs(rum, device=True)
     with tempfile.TemporaryDirectory() as d:
-        run = {}
+        run, writer = {}, {}
         for pw in ("i6", "f32"):
             trk = os.path.join(d, f"rumba_{pw}.trk")
             reset_counts()
-            t1 = time.time()
-            tract = tt.stream(pk, mask=mask, seed=seed, nsub=3, wire=pw,
-                              trk_sink=trk)
-            run[pw] = (tract, time.time() - t1, tt.trk_read(trk))
+            with sink_seconds() as sk:
+                t1 = time.time()
+                tract = tt.stream(pk, mask=mask, seed=seed, nsub=3, wire=pw,
+                                  trk_sink=trk)
+                t_pw = time.time() - t1
+            writer[pw] = f"{sk.busy:.3f} / {sk.stall:.3f}"
+            run[pw] = (tract, t_pw, tt.trk_read(trk))
             if pw == "i6":
                 chain_counts = read_counts()
             os.remove(trk)
@@ -1501,7 +1523,9 @@ def phase_rumba(dwi, mask, ax, mesh):
         f"{pk.nvec} peaks: stream+write i6 {t_stream:.3f} s, "
         f"{tract.n_count} streams, {npts} points; launches {chain_counts}")
     log(f"[wire] RUMBA chain stream+write i6 {t_stream:.3f} s against f32 "
-        f"{t_f:.3f} s on the same peaks; streams {tract.n_count} / "
+        f"{t_f:.3f} s on the same peaks (.trk writer thread busy / the "
+        f"loop's stall on it: i6 {writer['i6']} s, f32 {writer['f32']} s); "
+        f"streams {tract.n_count} / "
         f"{tract_f.n_count}, npts {'equal' if same_n else 'differ'}, "
         f"max|dpts| in the .trk {dpts:.4g} (bound {I6_BOUND:.4g})")
     check(tract.n_count > 0, "no streamlines from the RUMBA peaks")
@@ -2366,7 +2390,8 @@ def phase_modes():
             reset_counts()
             t1 = time.time()
             with launch_events(f"propagate_{name}_dir",
-                               None if name == "lcm" else 2) as ev:
+                               None if name == "lcm" else 2) as ev, \
+                    sink_seconds() as sk:
                 tract = runs[name](trk)
             t = time.time() - t1
             counts = read_counts()
@@ -2379,7 +2404,9 @@ def phase_modes():
             want = 2 * -(-nseeds[name] // chunk)
             log(f"[modes] {name} {sizes[name]}: {nseeds[name]} seeds, "
                 f"{tract.n_count} streams, {npts} points, .trk "
-                f"{size / 1e9:.3f} GB, stream+write {t:.3f} s; launches "
+                f"{size / 1e9:.3f} GB, stream+write {t:.3f} s (.trk writer "
+                f"thread busy {sk.busy:.3f} s, the loop's stall on it "
+                f"{sk.stall:.3f} s, appends {sk.seconds:.3f} s); launches "
                 f"{counts}; the kernel's {len(per)} launches (CUDA events "
                 f"each) sum {sum(per):.3f} ms, min {min(per):.3f}, max "
                 f"{max(per):.3f}")
@@ -2399,6 +2426,7 @@ def phase_modes():
             del back, tract
             os.remove(trk)
             records[name]["stream_write_s"] = t
+            records[name]["writer_s"] = dict(busy=sk.busy, stall=sk.stall)
             records[name]["run_launch_ms"] = dict(
                 n=len(per), sum=sum(per), min=min(per), max=max(per))
             if name == "micro":

@@ -471,8 +471,9 @@ def _trk_header_bytes(tr: Tract) -> bytes:
 def _pack_records(npts, pts, vsz, scalars=None):
     """Record stream [count_i, (xyz+scalars)*npts_i]... as one flat f32
     buffer with bitcast int32 counts, voxel->mm conversion fused in.
-    Native single-pass interleave when the C helper built (scalar-free
-    case); otherwise vectorized numpy over a boolean count-slot mask."""
+    The native line-parallel interleave (`pack_trk_lines`, with or
+    without per-point scalars) when the C helper built; otherwise
+    vectorized numpy over a boolean count-slot mask."""
     from ..utils.hostbuf import scratch
 
     npts = np.asarray(npts, np.int64)
@@ -488,13 +489,19 @@ def _pack_records(npts, pts, vsz, scalars=None):
         return out
     from .. import native
     clib = native.lib()
-    if clib is not None and ns == 0:
+    if clib is not None:
         npts32 = np.ascontiguousarray(npts, np.int32)
         p = np.ascontiguousarray(pts, np.float32)
-        clib.pack_trk_records(
-            n, native.as_i32_ptr(npts32), native.as_f32_ptr(p),
-            native.as_f32_ptr(vsz), native.as_f32_ptr(out))
-        return out
+        sc = None if ns == 0 else np.ascontiguousarray(scalars, np.float32)
+        if p.shape != (total, 3) or (sc is not None and len(sc) != total):
+            raise ValueError(f"{total} points in the counts, points "
+                             f"{p.shape}, scalars "
+                             f"{None if sc is None else sc.shape}")
+        if clib.pack_trk_lines(
+                n, native.as_i32_ptr(npts32), native.as_f32_ptr(p),
+                None if sc is None else native.as_f32_ptr(sc), ns,
+                native.as_f32_ptr(vsz), native.as_f32_ptr(out)) == 0:
+            return out
     rec_off = np.empty(n, np.int64)
     if n > 1:
         np.cumsum(1 + width * npts[:-1], out=rec_off[1:])
@@ -545,6 +552,10 @@ class TrkSink:
         self._f.write(_trk_header_bytes(tr))
         self._written = 0
 
+    def _write(self, out: np.ndarray) -> None:
+        """Write packed records to the file."""
+        out.astype("<f4", copy=False).tofile(self._f)
+
     def append(self, pts: np.ndarray, npts: np.ndarray,
                scalars: np.ndarray = None) -> None:
         """Append lines (pts [total, 3] voxel coords, counts [nlines],
@@ -556,7 +567,7 @@ class TrkSink:
             return
         with prof("trk.sink_append"):
             out = _pack_records(npts, pts, self._vsz, scalars)
-            out.astype("<f4", copy=False).tofile(self._f)
+            self._write(out)
         self._written += len(npts)
 
     def append_deltas(self, q: np.ndarray, npts: np.ndarray,
@@ -590,7 +601,7 @@ class TrkSink:
                 native.as_i32_ptr(npts32), native.as_f32_ptr(anch),
                 n, np.float32(1.0 / qscale), native.as_f32_ptr(self._vsz),
                 native.as_f32_ptr(out))
-            out.astype("<f4", copy=False).tofile(self._f)
+            self._write(out)
         self._written += n
         return True
 
@@ -626,7 +637,7 @@ class TrkSink:
                 native.as_i32_ptr(npts32), native.as_f32_ptr(anch),
                 n, np.float32(1.0 / qscale), native.as_f32_ptr(self._vsz),
                 native.as_f32_ptr(out))
-            out.astype("<f4", copy=False).tofile(self._f)
+            self._write(out)
         self._written += n
         return True
 

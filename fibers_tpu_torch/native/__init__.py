@@ -2,10 +2,10 @@
 
 `lib()` returns the loaded shared library or None when no C compiler is
 available — callers keep a numpy fallback.  The build is one `cc -O3
--shared` invocation, cached in ~/.cache/fibers_tpu_torch keyed by source
-hash, so installs stay pure-Python and the first call on a new machine
-pays ~1 s once.  (A copy of fibers_tpu/native/__init__.py with its own
-cache directory.)
+-shared` invocation (with OpenMP from the first compiler that has it),
+cached in ~/.cache/fibers_tpu_torch keyed by source hash, so installs
+stay pure-Python and the first call on a new machine pays ~1 s once.
+(A copy of fibers_tpu/native/__init__.py with its own cache directory.)
 """
 
 from __future__ import annotations
@@ -33,21 +33,24 @@ def _build() -> str | None:
     so = os.path.join(cache, f"packio-{tag}.so")
     if os.path.exists(so):
         return so
-    cc = os.environ.get("CC", "cc")
     tmp = so + f".tmp.{os.getpid()}"
-    base = [cc, "-O3", "-shared", "-fPIC", "-o", tmp, _SRC]
-    try:
-        # OpenMP when available (gcc/clang); plain build as fallback
-        subprocess.run(base + ["-fopenmp"], check=True,
-                       capture_output=True, timeout=120)
-    except Exception:
+    # no contraction into fused multiply-adds: the float32 results are
+    # the numpy expressions' bit for bit
+    flags = ["-O3", "-ffp-contract=off", "-shared", "-fPIC", "-o", tmp,
+             _SRC]
+    # OpenMP when a compiler has it (gcc/clang): $CC first, then the
+    # system cc, since a $CC toolchain may lack libgomp where cc has it;
+    # a plain build as the last resort
+    ccs = list(dict.fromkeys([os.environ.get("CC", "cc"), "cc"]))
+    for cmd in ([[cc, *flags, "-fopenmp"] for cc in ccs]
+                + [[cc, *flags] for cc in ccs]):
         try:
-            subprocess.run(base, check=True, capture_output=True,
-                           timeout=120)
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         except Exception:
-            return None
-    os.replace(tmp, so)
-    return so
+            continue
+        os.replace(tmp, so)
+        return so
+    return None
 
 
 def lib():
@@ -69,14 +72,16 @@ def lib():
         except OSError:
             return None
 
-        cdll.pack_trk_records.argtypes = [
+        cdll.pack_trk_lines.argtypes = [
             ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_float),
             ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_float),
             ctypes.POINTER(ctypes.c_float),
         ]
-        cdll.pack_trk_records.restype = None
+        cdll.pack_trk_lines.restype = ctypes.c_int32
 
         cdll.unpack_trk_records.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64,

@@ -5,10 +5,11 @@
  * on multi-hundred-MB buffers.  Built lazily by native/build.py with the
  * system C compiler; fibers_tpu falls back to numpy when unavailable.
  *
- * pack_trk_records: interleave TrackVis streamline records
- *   [int32 npts_i][float32 xyz*npts_i]... converting 0-based voxel coords
- *   to 0.5-based mm ((v + 0.5) * voxel_size, reference: src/trk.jl:476)
- *   in the same pass.  One streaming write, no intermediate copy.
+ * pack_trk_lines: interleave TrackVis streamline records
+ *   [int32 npts_i][float32 (xyz + ns scalars)*npts_i]... converting
+ *   0-based voxel coords to 0.5-based mm ((v + 0.5) * voxel_size,
+ *   reference: src/trk.jl:476) in the same pass, one line per loop
+ *   iteration across OpenMP threads.  No intermediate copy.
  *
  * unpack_trk_records: the inverse scan used by trk_read — splits counts
  *   and points and converts mm back to voxel coords
@@ -17,27 +18,52 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
-void pack_trk_records(int64_t n, const int32_t *npts, const float *pts,
-                      const float *vsz, float *out)
+/* Line i's record starts at word i + (3 + ns) * (points of lines < i):
+ * a prefix sum of 1 + (3 + ns) * npts_i, taken once up front, after
+ * which the lines are independent.  The point math is the numpy path's
+ * float32 (v + 0.5f) * voxel_size, one rounding per operation; scalars
+ * are copied as they are.  Returns -1 when the offsets' buffer cannot
+ * be allocated, else 0. */
+int32_t pack_trk_lines(int64_t n, const int32_t *npts, const float *pts,
+                       const float *scal, int32_t ns, const float *vsz,
+                       float *out)
 {
     const float sx = vsz[0], sy = vsz[1], sz = vsz[2];
-    const float *src = pts;
-    float *dst = out;
-
+    const int64_t width = 3 + (int64_t)ns;
+    int64_t *first = (int64_t *)malloc((size_t)(n > 0 ? n : 1)
+                                       * sizeof(int64_t));
+    if (first == NULL)
+        return -1;
+    int64_t acc = 0;
     for (int64_t i = 0; i < n; i++) {
-        int32_t m = npts[i];
+        first[i] = acc;
+        acc += npts[i];
+    }
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; i++) {
+        const int64_t p0 = first[i];
+        const int32_t m = npts[i];
+        const float *src = pts + p0 * 3;
+        const float *sc = ns ? scal + p0 * ns : scal;
+        float *dst = out + i + p0 * width;
         memcpy(dst, &m, sizeof(int32_t));
         dst++;
         for (int32_t j = 0; j < m; j++) {
             dst[0] = (src[0] + 0.5f) * sx;
             dst[1] = (src[1] + 0.5f) * sy;
             dst[2] = (src[2] + 0.5f) * sz;
-            dst += 3;
+            for (int32_t k = 0; k < ns; k++)
+                dst[3 + k] = sc[k];
+            dst += width;
             src += 3;
+            sc += ns;
         }
     }
+    free(first);
+    return 0;
 }
 
 /* Decode int8 error-feedback delta streams into float32 positions:

@@ -15,16 +15,18 @@ gather goes through an index that has already been pointed at a valid
 voxel (`_flat_index`, or the kernel's own bounds test; its `inb` flag
 stops the stream).
 
-The driver is one loop over seed chunks: propagate, compact the kept
-lines on the device into their final point order, copy them to pinned
-host memory, append them to the .trk sink (or collect them for a
-`Tract`).  The LCM and microscopy modes (tract/modes.py) run through the
-same driver.  The point wire is exact float32 positions, or the
-reference's error-feedback deltas ("i8", "i6"): the step loop quantizes
-each saved point's step at 1/qscale voxel while carrying the decoded
-position, so no error accumulates; the compaction packs them on the
-device and the host decodes them natively, straight into the .trk with
-a sink.  The reference's tunnel-shaped fetch pipeline is not ported.
+The driver is one loop over seed chunks: propagate (the next chunk is
+launched before this one's counts are fetched), compact the kept lines
+on the device into their final point order, copy them to pinned host
+memory, and hand them to a writer thread that decodes, packs and appends
+them to the .trk sink while the loop goes on with the next chunk (or
+collect them for a `Tract`).  The LCM and microscopy modes
+(tract/modes.py) run through the same driver.  The point wire is exact
+float32 positions, or the reference's error-feedback deltas ("i8",
+"i6"): the step loop quantizes each saved point's step at 1/qscale voxel
+while carrying the decoded position, so no error accumulates; the
+compaction packs them on the device and the host decodes them natively,
+straight into the .trk with a sink.  The reference's tunnel-shaped fetch pipeline is not ported.
 
 `stream_new_line` propagates one seed through the batched engine;
 `stream_new_point` and `stream_micro_new_point` are the reference's
@@ -33,9 +35,11 @@ single-step numpy functions over a `StreamWork` of host volumes.
 
 from __future__ import annotations
 
-import contextlib
+import collections
 import struct
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Union
 
@@ -370,11 +374,149 @@ class _TrkStream(TrkSink):
         super().close()
 
 
+def _fetch_lines(part, len_min, mode, has_scalars):
+    """One propagated seed shard's kept lines on the host: its counts
+    (and, for a delta wire, its anchors) in one blocking copy, then the
+    compaction on its device and a blocking copy of the lines.  Returns
+    (npts, raw, anchors, flags) host arrays: int32 point counts, the wire
+    buffer, the [n, 3] line anchors (delta wires, else None) and the int8
+    per-point flags (`has_scalars`, else None); None when no line is
+    kept."""
+    fwd_out, fwd_n_d, bwd_out, bwd_n_d, anchor, *scal = part
+    s = fwd_n_d.shape[0]
+    meta = [fwd_n_d, bwd_n_d]
+    if mode != "f32":
+        # the anchors' bits ride with the counts: one copy
+        meta.append(anchor.reshape(-1).view(torch.int32))
+    meta = _to_host(torch.cat(meta))
+    tot = meta[:s].astype(np.int64) + meta[s:2 * s]
+    keep = tot >= len_min
+    if not keep.any():
+        return None
+    npts = tot[keep]
+    off = np.zeros(len(tot), np.int64)
+    off[keep] = np.concatenate([[0], np.cumsum(npts)[:-1]])
+    dev = fwd_out.device
+    lines = (fwd_n_d, bwd_n_d, upload(keep, dev), upload(off, dev),
+             int(npts.sum()))
+    raw = _to_host(_compact(fwd_out, bwd_out, *lines, mode))
+    flags = _to_host(_compact(*scal, *lines)) if has_scalars else None
+    anch = None if mode == "f32" else \
+        meta[2 * s:].view(np.float32).reshape(s, 3)[keep]
+    return npts.astype(np.int32), raw, anch, flags
+
+
+def _chunk_lines(launch, starts, len_min, mode, has_scalars):
+    """The chunk loop's device side, on the calling thread: yields each
+    seed shard's kept lines (`_fetch_lines`) in seed order.  Chunk i+1 is
+    launched before chunk i's counts copy (the reference's f32 wave of
+    two), so the card has it queued while the host syncs and compacts;
+    each chunk's raw outputs are dropped with its compaction, so at most
+    two chunks of them are on the card.  `launch` is called once per
+    chunk, in order."""
+    ahead = launch(starts[0]) if starts else None
+    for i in range(len(starts)):
+        out, ahead = ahead, None
+        if i + 1 < len(starts):
+            ahead = launch(starts[i + 1])
+        parts = out if isinstance(out, list) else [out]
+        del out
+        for k in range(len(parts)):
+            lines = _fetch_lines(parts[k], len_min, mode, has_scalars)
+            parts[k] = None
+            if lines is not None:
+                yield lines
+
+
+class _WriterTimes:
+    """Seconds the .trk writer thread spent decoding, packing and writing
+    chunks (`busy`), and seconds the chunk loop waited on it (`stall`:
+    what of the writer's work stayed on the critical path), summed over
+    every stream into a sink since the last `reset()`."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.busy = self.stall = 0.0
+
+
+writer_times = _WriterTimes()
+
+
+def _append_lines(sink, npts, raw, anchors, flags, mode, qscale):
+    """Append one shard's fetched lines to the sink: the fused native
+    decode of a delta wire into records, else decode + pack."""
+    if flags is None and mode != "f32" and _append_fused(
+            sink, raw, npts, anchors, mode, qscale):
+        return
+    pts = raw if mode == "f32" else _decode_points(
+        raw, int(npts.sum()), mode, npts=npts, anchors=anchors,
+        qscale=qscale)
+    sink.append(pts, npts,
+                None if flags is None else flags.astype(np.float32)[:, None])
+
+
+class _Writer:
+    """The sink's writer thread: one worker appends the submitted chunks
+    in order while the calling thread launches, compacts and copies the
+    next ones.  The worker gets host numpy arrays only and calls nothing
+    of torch: the pooled `scratch` views of the decode and the packing
+    live and die on it, and the calling thread keeps its own reference
+    to every array it hands over (pinned memory) until the chunk is
+    written, so pinned blocks are freed on the calling thread.  At most
+    `DEPTH` chunks are in flight; a worker error is raised on the calling
+    thread at the next `submit` or at `drain`."""
+
+    DEPTH = 2
+
+    def __init__(self, sink, mode, qscale):
+        self._args = (sink, mode, qscale)
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="trk-writer")
+        self._inflight = collections.deque()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._inflight.clear()
+
+    def submit(self, lines):
+        while self._inflight and (len(self._inflight) >= self.DEPTH
+                                  or self._inflight[0][0].done()):
+            self._wait_oldest()
+        # the worker takes the arrays out of the box, so that it holds no
+        # reference once the chunk is written
+        self._inflight.append((self._pool.submit(self._write, [lines]),
+                               lines))
+
+    def drain(self):
+        while self._inflight:
+            self._wait_oldest()
+
+    def _wait_oldest(self):
+        t0 = time.perf_counter()
+        try:
+            self._inflight[0][0].result()
+        finally:
+            writer_times.stall += time.perf_counter() - t0
+            self._inflight.popleft()
+
+    def _write(self, box):
+        t0 = time.perf_counter()
+        try:
+            _append_lines(self._args[0], *box.pop(), *self._args[1:])
+        finally:
+            writer_times.busy += time.perf_counter() - t0
+
+
 def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False,
            mode="f32", qscale=254.0):
     """One loop over seed chunks: propagate, compact the kept lines on the
-    device, copy them to the host, append them to the sink or keep them
-    for the Tract.  Returns the finished Tract.
+    device, copy them to the host (`_chunk_lines`), then append them to
+    the sink on its writer thread (`_Writer`) or keep them for the Tract.
+    Returns the finished Tract.
 
     launch(lo) -> (fwd_out, fwd_n, bwd_out, bwd_n, anchor) or, with
     has_scalars, (..., fwd_scal, bwd_scal): [nsteps, S] int8 per-point
@@ -383,58 +525,31 @@ def _drive(launch, starts, len_min, tr, trk_sink, has_scalars=False,
     order; each is compacted on its own device.  `mode`: the point wire
     (`_wire_mode`); with "i8"/"i6" the outputs are deltas, the anchors
     come to the host in the one copy of the counts, and the host decodes
-    (natively into the .trk records with a sink)."""
+    (natively into the .trk records with a sink).  Without a sink the
+    lines are decoded on the calling thread, as they are assembled."""
     if has_scalars:
         tr.n_scalars = 1          # before the sink writes the header
-    sink = _TrkStream(trk_sink, tr) if trk_sink is not None else None
-    counts, parts, sparts = [], [], []
-    with sink if sink is not None else contextlib.nullcontext():
-        for lo in starts:
-            out = launch(lo)
-            for fwd_out, fwd_n_d, bwd_out, bwd_n_d, anchor, *scal in (
-                    out if isinstance(out, list) else [out]):
-                s = fwd_n_d.shape[0]
-                meta = [fwd_n_d, bwd_n_d]
-                if mode != "f32":
-                    # the anchors' bits ride with the counts: one copy
-                    meta.append(anchor.reshape(-1).view(torch.int32))
-                meta = _to_host(torch.cat(meta))
-                fwd_n, bwd_n = meta[:s], meta[s:2 * s]
-                tot = fwd_n.astype(np.int64) + bwd_n
-                keep = tot >= len_min
-                if not keep.any():
-                    continue
-                npts = tot[keep]
-                off = np.zeros(len(tot), np.int64)
-                off[keep] = np.concatenate([[0], np.cumsum(npts)[:-1]])
-                dev = fwd_out.device
-                total = int(npts.sum())
-                lines = (fwd_n_d, bwd_n_d, upload(keep, dev),
-                         upload(off, dev), total)
-                raw = _to_host(_compact(fwd_out, bwd_out, *lines, mode))
-                sc = _to_host(_compact(*scal, *lines)).astype(np.float32) \
-                    if has_scalars else None
-                npts = npts.astype(np.int32)
-                counts.append(npts)
-                anch = None if mode == "f32" else \
-                    meta[2 * s:].view(np.float32).reshape(s, 3)[keep]
-                if (sink is not None and sc is None and mode != "f32"
-                        and _append_fused(sink, raw, npts, anch, mode,
-                                          qscale)):
-                    continue
-                pts = raw if mode == "f32" else _decode_points(
-                    raw, total, mode, npts=npts, anchors=anch, qscale=qscale)
-                if sink is not None:
-                    sink.append(pts, npts,
-                                None if sc is None else sc[:, None])
-                else:
-                    parts.append(pts)
-                    sparts.append(sc)
-    npts = np.concatenate(counts) if counts else np.zeros(0, np.int32)
-    if sink is not None:
-        tr.npts = npts
-        tr.n_count = int(len(npts))
+    chunks = _chunk_lines(launch, starts, len_min, mode, has_scalars)
+    counts = []
+    if trk_sink is not None:
+        with _TrkStream(trk_sink, tr) as sink, \
+                _Writer(sink, mode, qscale) as writer:
+            for lines in chunks:
+                counts.append(lines[0])
+                writer.submit(lines)
+            writer.drain()
+        tr.npts = np.concatenate(counts) if counts else \
+            np.zeros(0, np.int32)
+        tr.n_count = int(len(tr.npts))
         return tr
+    parts, sparts = [], []
+    for npts, raw, anch, flags in chunks:
+        counts.append(npts)
+        parts.append(raw if mode == "f32" else _decode_points(
+            raw, int(npts.sum()), mode, npts=npts, anchors=anch,
+            qscale=qscale))
+        sparts.append(None if flags is None else flags.astype(np.float32))
+    npts = np.concatenate(counts) if counts else np.zeros(0, np.int32)
     scalars = None
     if has_scalars:
         scalars = np.concatenate(sparts) if sparts else \

@@ -221,20 +221,62 @@ def test_data_tables_are_equal(name):
         _assert_same(ft.color_lut, tt.color_lut, name)
 
 
-def test_packio_gives_the_numpy_path_bytes(monkeypatch):
-    """The port's native packer (its own build of packio.c) writes the
-    record stream the numpy path writes, and the reference's bytes."""
+@pytest.mark.parametrize("nlines", [40, 12_000])
+@pytest.mark.parametrize("ns", [0, 1, 2])
+def test_packio_gives_the_numpy_path_bytes(monkeypatch, ns, nlines):
+    """The port's native packer (its own build of packio.c, one line per
+    OpenMP iteration, with `ns` per-point scalars) writes the record
+    stream the numpy path writes, and the reference's bytes; lines of one
+    point included, and 12,000 lines for a run over many threads."""
     from fibers_tpu.io import trk as jtrk
     from fibers_tpu_torch import native
     from fibers_tpu_torch.io import trk as ttrk
     assert native.lib() is not None, "packio.c did not build"
-    npts, pts, _ = _tract_inputs(False)
-    vsz = np.array([1.5, 2.0, 1.5], np.float32)
-    fast = ttrk._pack_records(npts, pts, vsz).copy()
-    ref = jtrk._pack_records(npts, pts, vsz).copy()
+    rng = np.random.default_rng(nlines + ns)
+    npts = rng.integers(1, 12, nlines).astype(np.int32)
+    npts[::7] = 1
+    pts = rng.uniform(-0.5, 60, (int(npts.sum()), 3)).astype(np.float32)
+    sc = None if ns == 0 else \
+        rng.standard_normal((len(pts), ns)).astype(np.float32)
+    vsz = np.array([1.5, 2.0, 1.25], np.float32)
+    fast = ttrk._pack_records(npts, pts, vsz, sc).copy()
+    ref = jtrk._pack_records(npts, pts, vsz, sc).copy()
     monkeypatch.setattr(native, "lib", lambda: None)
-    slow = ttrk._pack_records(npts, pts, vsz).copy()
+    slow = ttrk._pack_records(npts, pts, vsz, sc).copy()
+    assert len(fast) == nlines + (3 + ns) * len(pts)
     assert fast.tobytes() == slow.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("cc_has_openmp", [True, False])
+def test_native_build_takes_openmp_from_the_system_cc(
+        tmp_path, monkeypatch, cc_has_openmp):
+    """The native helpers build with OpenMP from the first compiler that
+    has it: a $CC without libgomp (its `-fopenmp` fails) gives way to the
+    system cc; with no compiler that has it, a plain build."""
+    import os
+    import shutil
+    import stat
+    from fibers_tpu_torch import native
+    fake = tmp_path / "gcc-without-omp"
+    fake.write_text("#!/bin/sh\n"
+                    "for a in \"$@\"; do\n"
+                    "  [ \"$a\" = -fopenmp ] && exit 1\n"
+                    "done\n"
+                    "exec cc \"$@\"\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CC", str(fake))
+    monkeypatch.setenv("FIBERS_NATIVE_CACHE", str(tmp_path / "cache"))
+    if not cc_has_openmp:
+        bindir = tmp_path / "bin"
+        bindir.mkdir()
+        (bindir / "cc").symlink_to(fake)
+        real_cc = shutil.which("cc")
+        fake.write_text(fake.read_text().replace("exec cc", f"exec {real_cc}"))
+        monkeypatch.setenv("PATH", f"{bindir}:{os.environ['PATH']}")
+    so = native._build()
+    assert so is not None
+    with open(so, "rb") as f:
+        assert (b"GOMP_parallel" in f.read()) == cc_has_openmp
 
 
 def test_lazy_volumes_materialize_the_eager_scatter():

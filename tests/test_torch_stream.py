@@ -8,6 +8,8 @@ voxel.  Hence: equal line counts, equal per-line point counts on >= 99%
 of lines, and points within atol=1e-4 voxel on lines of equal length.
 """
 
+import threading
+
 import jax
 import numpy as np
 import pytest
@@ -575,3 +577,175 @@ def test_stream_sharded_i6_equals_unsharded():
     assert sh.n_count == one.n_count > 0
     assert np.array_equal(sh.npts, one.npts)
     assert np.array_equal(sh.packed_xyz, one.packed_xyz)
+
+
+# ------------------------------------------------------------------ #
+# The overlapped chunk driver: a writer thread for the .trk sink
+# ------------------------------------------------------------------ #
+
+def _ref_trk(tract, ref, path):
+    """The JAX package's .trk writer on the port's in-memory lines."""
+    tr = ft.Tract.from_ref(as_ref(ref))
+    tr.set_packed(tract.packed_xyz, tract.npts, tract.packed_scalars)
+    ft.trk_write(tr, str(path))
+    return path.read_bytes()
+
+
+def _writer_case(case):
+    """(port kwargs, JAX kwargs or None, the orientation volume the
+    Tract's header comes from) of each engine, at a chunk that makes
+    four or more chunks.  LCM lines follow the port's counter-based draws
+    (C8), so its .trk is held to the JAX package's writer on the port's
+    lines instead of the JAX package's stream."""
+    from fibers_tpu_torch.utils.phantom import (make_lcm_field,
+                                                make_micro_field)
+    if case == "lcm":
+        ovecs, lcm, mask = make_lcm_field((24, 24))
+        kw = dict(ovec=ovecs, mask=mask, lcms=lcm, nsub=1, seed_rng=2,
+                  chunk=128)
+        return kw, None, ovecs[0]
+    if case == "micro":
+        ov, mask = make_micro_field((32, 32, 2))
+        kw = dict(mask=mask, search_dist=4, nsub=0)
+        return dict(kw, ovec=ov, chunk=256), dict(kw, ovec=as_ref(ov)), ov
+    ovm, maskm, _ = _smooth_field()
+    kw = dict(mask=maskm, nsub=3, seed_rng=3, smooth_coeff=0.0, wire=case)
+    return dict(kw, ovec=as_port(ovm), chunk=700), dict(kw, ovec=ovm), ovm
+
+
+@pytest.mark.parametrize("case", ["f32", "i8", "i6", "lcm", "micro"])
+def test_overlapped_driver_writes_the_reference_bytes(case, tmp_path,
+                                                      monkeypatch):
+    """Through the writer thread, over four or more chunks (two in flight
+    on the writer), each engine's .trk is the JAX package's, byte for
+    byte, and the Tract in memory holds the same lines; every chunk is
+    appended on the writer thread."""
+    from fibers_tpu_torch.tract import stream as stream_mod
+    kw, ref_kw, ref = _writer_case(case)
+    ovec = kw.pop("ovec")
+    threads, real = [], stream_mod._append_lines
+
+    def spy(*args):
+        threads.append(threading.current_thread().name)
+        return real(*args)
+
+    monkeypatch.setattr(stream_mod, "_append_lines", spy)
+    pt = tmp_path / "t.trk"
+    ts = tt.stream(ovec, device="cpu", trk_sink=str(pt), **kw)
+    mem = tt.stream(ovec, device="cpu", **kw)
+    assert len(threads) >= 4
+    assert all(t.startswith("trk-writer") for t in threads), threads
+    assert ts.n_count == mem.n_count > 0
+    assert np.array_equal(ts.npts, mem.npts)
+    if ref_kw is None:
+        want = _ref_trk(mem, ref, tmp_path / "j.trk")
+    else:
+        pj = tmp_path / "j.trk"
+        ft.stream(ref_kw.pop("ovec"), trk_sink=str(pj), **ref_kw)
+        want = pj.read_bytes()
+        assert _ref_trk(mem, ref, tmp_path / "m.trk") == want
+    assert pt.read_bytes() == want
+
+
+def test_driver_launches_one_chunk_ahead(monkeypatch, tmp_path):
+    """Chunk i+1 is launched before chunk i's counts are copied to the
+    host (`_fetch_lines` starts with that copy), every chunk once and in
+    order, and the writer never holds more than two chunks: a slow writer
+    makes the loop wait for it."""
+    from fibers_tpu_torch.tract import stream as stream_mod
+    events, done = [], []
+    real_drive, real_fetch = stream_mod._drive, stream_mod._fetch_lines
+    real_append, real_submit = (stream_mod._append_lines,
+                                stream_mod._Writer.submit)
+
+    def drive(launch, *args, **kwargs):
+        def logged(lo):
+            events.append(("launch", lo))
+            return launch(lo)
+        return real_drive(logged, *args, **kwargs)
+
+    def fetch(*args):
+        events.append(("fetch", None))
+        return real_fetch(*args)
+
+    third = threading.Event()
+
+    def slow_append(*args):
+        # the first chunk is written only once the loop offers a third
+        if not done:
+            assert third.wait(30)
+        real_append(*args)
+        done.append(1)
+
+    def submit(self, lines):
+        submitted = sum(kind == "submit" for kind, _ in events) + 1
+        if submitted == 3:
+            third.set()
+        real_submit(self, lines)
+        events.append(("submit", submitted - len(done)))
+
+    monkeypatch.setattr(stream_mod, "_drive", drive)
+    monkeypatch.setattr(stream_mod, "_fetch_lines", fetch)
+    monkeypatch.setattr(stream_mod, "_append_lines", slow_append)
+    monkeypatch.setattr(stream_mod._Writer, "submit", submit)
+    ovm, maskm, _ = _smooth_field()
+    tr = tt.stream(as_port(ovm), mask=maskm, nsub=2, device="cpu",
+                   chunk=500, trk_sink=str(tmp_path / "a.trk"))
+    launches = [lo for kind, lo in events if kind == "launch"]
+    n = len(launches)
+    assert n >= 4 and tr.n_count > 0
+    assert launches == list(range(0, n * 500, 500))
+    seen = 0
+    fetches = []
+    for kind, _ in events:
+        seen += kind == "launch"
+        if kind == "fetch":
+            fetches.append(seen)
+    # the k-th chunk's fetch comes after launch k + 1 (the last: n)
+    assert fetches == [min(k + 2, n) for k in range(n)]
+    inflight = [m for kind, m in events if kind == "submit"]
+    assert len(inflight) == n and max(inflight) == 2
+
+
+@pytest.mark.parametrize("wire", ["f32", "i6"])
+def test_writer_error_reaches_the_caller(wire, tmp_path, monkeypatch):
+    """A failure on the writer thread (the sink's append of the second
+    chunk) is raised by `stream` on the calling thread, the loop does not
+    hang, and the .trk file is closed."""
+    from fibers_tpu_torch.io.trk import TrkSink
+    name = "append" if wire == "f32" else "append_deltas6"
+    real, calls, files = getattr(TrkSink, name), [], []
+
+    def failing(self, *args, **kwargs):
+        calls.append(threading.current_thread().name)
+        files.append(self._f)
+        if len(calls) == 2:
+            raise RuntimeError("disk full")
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(TrkSink, name, failing)
+    ovm, maskm, _ = _smooth_field()
+    with pytest.raises(RuntimeError, match="disk full"):
+        tt.stream(as_port(ovm), mask=maskm, nsub=3, wire=wire, device="cpu",
+                  chunk=500, trk_sink=str(tmp_path / "x.trk"))
+    assert len(calls) >= 2 and calls[1].startswith("trk-writer")
+    assert files and all(f.closed for f in files)
+
+
+def test_overlapped_driver_on_a_mesh(tmp_path):
+    """On 8 CPU shards, over four or more chunks, the lines, the counts
+    and the .trk bytes are the unsharded run's and the JAX package's
+    (no smoothing: bit-equal positions)."""
+    ovm, maskm, _ = _smooth_field()
+    kw = dict(mask=maskm, nsub=3, seed_rng=3, smooth_coeff=0.0, wire="f32")
+    one = tt.stream(as_port(ovm), device="cpu", chunk=700, **kw)
+    mesh = make_mesh(8, device="cpu")
+    sh = tt.stream(as_port(ovm), mesh=mesh, chunk=700, **kw)
+    assert sh.n_count == one.n_count > 0
+    assert np.array_equal(sh.npts, one.npts)
+    assert np.array_equal(sh.packed_xyz, one.packed_xyz)
+    ps, pj = tmp_path / "s.trk", tmp_path / "j.trk"
+    tt.stream(as_port(ovm), mesh=mesh, chunk=700, trk_sink=str(ps), **kw)
+    ft.stream(ovm, trk_sink=str(pj), **kw)
+    assert ps.read_bytes() == pj.read_bytes()
+    assert _ref_trk(sh, ovm, tmp_path / "m.trk") == pj.read_bytes()
