@@ -28,7 +28,7 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   dsi`/`structens`), with their card-against-CPU checks on small inputs.
   The DSI fit and the structure tensor launch none of the hand-written
   kernels (their counts must stay 0); the DSI chain's stream launches
-  `propagate_dir` twice a chunk.
+  `propagate_pair` once a chunk.
 - The LCM and microscopy modes (`[modes]` lines): the self-checks of
   their kernels' arithmetic against torch (the window sums of three;
   logf, the Gumbel transform of every uniform, the sum of ten, the
@@ -41,7 +41,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   microscopy on 256^2 x 2 through the kernels and through the plain
   loops, .trk byte for byte; microscopy on a 1024^2 x 2 slice through
   its kernel.  Each kernel launches twice a chunk; every launch of the
-  LCM 256^2 and micro 1024^2 x 2 runs is timed with CUDA events.
+  LCM 256^2 and micro 1024^2 x 2 runs is timed with CUDA events.  The LCM
+  kernel is also held to its plain loop at a budget that cuts most lines
+  and timed on the first 32,768 and 65,536 streams of its chunk.
 - Wires (`[wire]` lines): the headline pipeline as bench.py:240-261
   writes it (the batch on the u12 upload wire, the points on the i6
   point wire) against the f32 run, and its i6 stream against f32 points
@@ -53,10 +55,14 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 - Tractography (`[propagate]` lines): the self-check of the propagation
   kernel's sum of three products against torch's on the card; one
   131,072-seed chunk of the main path's device peaks (1 vector a voxel)
-  and of the RUMBA chain's (5), f32 and i6: the kernel against the plain
-  step loop on both directions, bit for bit on its four outputs, one
-  direction timed beside the plain loop and a CUDA-graph replay of it
-  (a yardstick only this script builds), with the byte bound; and the
+  and of the RUMBA chain's (5), f32 and i6: the two-direction kernel
+  (`propagate_pair`) and the one-direction kernel (`propagate_dir`, each
+  direction) against the plain step loop, bit for bit on every output,
+  also at a budget that cuts most lines; both directions timed beside the
+  one-direction kernel launched for each, the plain loop and a CUDA-graph
+  replay of it (a yardstick only this script builds), with the byte bound,
+  the forward direction alone too, and on the main path the two-direction
+  kernel at 32,768 to 262,144 seeds; and the
   stream + write of the main path, the RUMBA chain and DSI's chain
   through the kernel beside the plain loop (patched in here), their
   .trk files byte for byte.
@@ -66,16 +72,18 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   the structure tensor and one `full_recon_step`, each sharded against
   the unsharded run of the same call, with each kernel's launches on
   those paths (`gqi_fused` once per shard, `tv_multiplier` once per
-  device and iteration, `tv_fused` never).
+  device and iteration, `tv_fused` never, `propagate_pair` once per shard
+  and chunk, `propagate_dir` once per shard in `full_recon_step`).
 
 Every phase raises on failure.  It imports no jax and nothing of the JAX
 package `fibers_tpu`; without a CUDA device it fails.
 
-Output: one line per phase with its wall time; then a JSON line with the
-kernel records (launches on the path and on the mesh paths, error
-against the plain version, kernel, plain and bound times), the
-`nvidia-smi` name and power limit,
-and as the last line `{"ok": true, "device": {...}}`.
+Output: one line per phase with its wall time (the build's lines also
+give each kernel's registers and the tractography kernels' resident
+threads an SM); then a JSON line with the kernel records (launches on
+the path and on the mesh paths, error against the plain version, kernel,
+plain and bound times), the `nvidia-smi` name and power limit, and as
+the last line `{"ok": true, "device": {...}}`.
 """
 
 import contextlib
@@ -102,8 +110,12 @@ KERNELS = [
      "benchmarks/exp_tv_variants.py:40", False),
     ("tv_2slice", "fibers_tpu_torch/csrc/tv_stencil.cu",
      "benchmarks/exp_tv_variants.py:99", False),
+    ("propagate_pair", "fibers_tpu_torch/csrc/propagate.cu",
+     "fibers_tpu/tract/stream.py:149 _propagate (lax.scan, XLA), both "
+     "directions of a chunk", True),
     ("propagate_dir", "fibers_tpu_torch/csrc/propagate.cu",
-     "fibers_tpu/tract/stream.py:149 _propagate (lax.scan, XLA)", True),
+     "fibers_tpu/tract/stream.py:149 _propagate (lax.scan, XLA), one "
+     "direction (full_recon_step)", True),
     ("propagate_lcm_dir", "fibers_tpu_torch/csrc/propagate_lcm.cu",
      "fibers_tpu/tract/modes.py:47 _propagate_lcm (lax.scan, XLA)", True),
     ("propagate_micro_dir", "fibers_tpu_torch/csrc/propagate_micro.cu",
@@ -159,13 +171,15 @@ def _wrappers():
     from fibers_tpu_torch.ops.kernels.tv_fused import tv_fused
     from fibers_tpu_torch.ops.kernels.tv_stencil import tv_multiplier
     from fibers_tpu_torch.ops.kernels.tv_variants import tv_2slice, tv_dimsem
-    from fibers_tpu_torch.ops.kernels.propagate import propagate_dir
+    from fibers_tpu_torch.ops.kernels.propagate import (propagate_dir,
+                                                        propagate_pair)
     from fibers_tpu_torch.ops.kernels.propagate_lcm import propagate_lcm_dir
     from fibers_tpu_torch.ops.kernels.propagate_micro import \
         propagate_micro_dir
     return dict(gqi_fused=gqi_fused, tv_fused=tv_fused,
                 tv_multiplier=tv_multiplier, tv_dimsem=tv_dimsem,
-                tv_2slice=tv_2slice, propagate_dir=propagate_dir,
+                tv_2slice=tv_2slice, propagate_pair=propagate_pair,
+                propagate_dir=propagate_dir,
                 propagate_lcm_dir=propagate_lcm_dir,
                 propagate_micro_dir=propagate_micro_dir)
 
@@ -212,6 +226,15 @@ def phase_build():
         if ("registers" in line or "spill" in line
                 or "Compiling entry function" in line):
             log(f"[build]   {line.strip()}")
+    # the tractography kernels' resident threads an SM (occupancy API)
+    lib = _build.load_library()
+    log("[build] resident threads an SM, points / deltas: " + ", ".join(
+        f"propagate_{'pair' if pair else 'dir'} nvec {nvec} "
+        + " / ".join(str(lib.propagate_resident_threads(pair, nvec, d))
+                     for d in (0, 1))
+        for pair in (1, 0) for nvec in (1, 3, 5, 2))
+        + ", propagate_lcm_dir " + " / ".join(
+            str(lib.propagate_lcm_resident_threads(d)) for d in (0, 1)))
 
 
 def _tables(sphere):
@@ -498,7 +521,8 @@ def phase_nosync():
     """The deterministic engine on a small cut of the main path (device
     peaks of a GQI fit), the LCM and the microscopy engine, every chunk's
     propagation under `launches_must_not_sync`: each engine's kernel
-    launches, two a chunk."""
+    launches, one a chunk (deterministic, both directions) or two (LCM,
+    micro)."""
     import torch
     import fibers_tpu_torch as tt
     from fibers_tpu_torch.utils.phantom import (make_brain, make_lcm_field,
@@ -534,12 +558,13 @@ def phase_nosync():
         f"{time.time() - t0:.1f} s")
     check(tripped, "the sync debug mode did not trip on a blocking copy")
     check(n_det >= 2 and guard.made >= n_det + 2, "a step loop did not run")
-    check(counts["propagate_dir"] == 2 * n_det
+    check(counts["propagate_pair"] == n_det
           and counts["propagate_lcm_dir"] >= 2
           and counts["propagate_micro_dir"] >= 2
           and counts["propagate_lcm_dir"] + counts["propagate_micro_dir"]
           == 2 * (guard.made - n_det),
-          f"the engines did not launch their kernels twice a chunk: {counts}")
+          f"the engines did not launch their kernels once (deterministic) "
+          f"or twice (LCM, micro) a chunk: {counts}")
     check(min(det.n_count, lcm_t.n_count, mic.n_count) > 0,
           "an engine gave no streamlines under the sync check")
 
@@ -552,7 +577,7 @@ def phase_mesh_main(dwi, mask, seed, mesh, ref, back_ref, t_ref, d):
     bit-equal or within rtol 1e-4 / atol 2e-5 (tests/test_parallel.py's),
     peaks the same; the stream's npts equal and its points within 1e-6.
     Returns the kernels' launches on this path: gqi_fused once per shard,
-    propagate_dir once per shard and direction of each chunk."""
+    propagate_pair once per shard of each chunk."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -571,10 +596,10 @@ def phase_mesh_main(dwi, mask, seed, mesh, ref, back_ref, t_ref, d):
         "set_sync_debug_mode('error')")
     nprop = stream_chunks(3 * int((seed.vol > 0).sum()), mesh.ndata)
     check(counts["gqi_fused"] == mesh.ndata
-          and counts["propagate_dir"] == nprop
+          and counts["propagate_pair"] == nprop
           and sum(counts.values()) == mesh.ndata + nprop,
           f"the sharded pipeline launched {counts}, not gqi_fused once per "
-          f"shard and propagate_dir {nprop} times")
+          f"shard and propagate_pair {nprop} times")
     check(guard.made >= 1, "the sharded stream ran no guarded launch")
 
     m = mask.vol > 0
@@ -673,14 +698,14 @@ PROP_FLOPS_STEP, PROP_FLOPS_CAND, PROP_FLOPS_DELTA = 33, 7, 18
 
 
 def stream_chunks(nseeds, shards=1):
-    """propagate_dir's launches for a stream of `nseeds` seeds: two
-    directions of each chunk, one launch per shard."""
-    return 2 * shards * -(-nseeds // CHUNK)
+    """propagate_pair's launches for a stream of `nseeds` seeds: both
+    directions of each chunk in one launch per shard."""
+    return shards * -(-nseeds // CHUNK)
 
 
 class plain_loop:
     """Inside the block, the three engines' propagation runs the plain
-    step loops (`propagate_dir_plain`, `propagate_lcm_dir_plain`,
+    step loops (`propagate_pair_plain`, `propagate_lcm_dir_plain`,
     `propagate_micro_dir_plain`) on the card, as the port did before its
     kernels, and the micro mode at the plain loop's chunk (the
     reference's rule, which sizes its [S, W, 3] window tensors): for
@@ -691,12 +716,12 @@ class plain_loop:
                                                   propagate_lcm,
                                                   propagate_micro)
         from fibers_tpu_torch.tract import modes, stream as stream_mod
-        self._slots = [(stream_mod, "propagate_dir"),
+        self._slots = [(stream_mod, "propagate_pair"),
                        (modes, "propagate_lcm_dir"),
                        (modes, "propagate_micro_dir"),
                        (modes, "_micro_chunk")]
         self._real = [getattr(mod, name) for mod, name in self._slots]
-        plains = [propagate.propagate_dir_plain,
+        plains = [propagate.propagate_pair_plain,
                   propagate_lcm.propagate_lcm_dir_plain,
                   propagate_micro.propagate_micro_dir_plain,
                   lambda cfg, nwin, device: modes._reference_chunk(cfg,
@@ -866,25 +891,40 @@ class visited_voxels:
         self.module._flat_index = self._real
 
 
-def phase_propagate(name, work, seed):
+# the main path's budget-binding case: a budget of this many points cuts
+# most lines of the first chunk
+BUDGET = 24
+# stream counts of the two-direction kernel's scaling line
+SCALING = (32_768, 65_536, 131_072, 262_144)
+
+
+def phase_propagate(name, work, seed, scaling=False):
     """[propagate] The first chunk (CHUNK seeds) of `work`'s stream from
-    `seed`, f32 and i6: the kernel against the plain loop on both
-    directions, bit for bit on the four outputs of each; then the forward
-    direction timed with CUDA events in turns plain / kernel / kernel /
-    plain, and a CUDA-graph replay of the plain loop's direction (its
-    outputs checked too), beside the bound of the direction's bytes and
-    operations.  The bytes count the field's voxels the direction visits
-    (`visited_voxels`), not the whole field; the operations its active
-    stream-steps.  Returns {wire: record}."""
+    `seed`, f32 and i6: the two-direction kernel (`propagate_pair`) and
+    the one-direction kernel on each direction against the plain loop,
+    bit for bit on every output, and the two-direction kernel again at a
+    budget of BUDGET points, which cuts most lines; then the two
+    directions timed with CUDA events in turns plain / kernel / kernel /
+    plain, beside the one-direction kernel launched for each, a
+    CUDA-graph replay of the plain loop's two directions (its outputs
+    checked too) and the bound of the directions' bytes and operations;
+    the forward direction alone the same way.  The bytes count the
+    field's voxels each direction visits (`visited_voxels`), not the whole
+    field; the operations its active stream-steps.  With `scaling`, the
+    two-direction kernel's time at SCALING streams of the same run.
+    Returns {wire: {"pair": record, "dir": record}}."""
     import torch
-    from fibers_tpu_torch.ops.kernels.propagate import (propagate_dir,
-                                                        propagate_dir_plain)
+    from fibers_tpu_torch.ops.kernels.propagate import (
+        propagate_dir, propagate_dir_plain, propagate_pair,
+        propagate_pair_plain)
     from fibers_tpu_torch.tract.stream import _seed_state
 
     t0 = time.time()
     seeds, subs = stream_seeds(work, seed)
     ov = work.ovec_flat
-    pos0, v0 = _seed_state(seeds[:CHUNK], subs[:CHUNK], ov, work.shape3)
+    n = SCALING[-1] if scaling else CHUNK
+    pos_all, v_all = _seed_state(seeds[:n], subs[:n], ov, work.shape3)
+    pos0, v0 = pos_all[:CHUNK], v_all[:CHUNK]
     neg = -v0
     zero = torch.zeros(len(pos0), dtype=torch.int32, device=pos0.device)
     nvec = ov.shape[1]
@@ -892,73 +932,138 @@ def phase_propagate(name, work, seed):
     for wire in ("f32", "i6"):
         args = propagate_args(work, wire)
         nsteps = args[0]
+        pair = propagate_pair(pos0, v0, zero, ov, *args)
         fwd = propagate_dir(pos0, v0, zero, ov, *args)
-        bwd = propagate_dir(pos0, neg, fwd[2], ov, *args)
         torch.cuda.synchronize()
+        hits = []
         with visited_voxels(ov.shape[0], ov.device) as seen:
             fwd_p = propagate_dir_plain(pos0, v0, zero, ov, *args)
+        hits.append(seen.hits)
+        with visited_voxels(ov.shape[0], ov.device) as seen:
+            bwd_p = propagate_dir_plain(pos0, neg, fwd_p[2], ov, *args)
+        hits.append(seen.hits)
+        bwd = propagate_dir(pos0, neg, fwd_p[2], ov, *args)
+        want = fwd_p + bwd_p[:3]
+        same = [_same_bits(a, b) for a, b in zip(pair, want)]
+        same_one = [_same_bits(a, b) for a, b in zip(fwd + bwd,
+                                                     fwd_p + bwd_p)]
+        err = _max_err(pair + fwd + bwd, want + fwd_p + bwd_p)
+        check(all(same) and all(same_one),
+              f"{name} {wire}: a kernel differs from the plain loop "
+              f"(two-direction outputs equal: {same}; one-direction: "
+              f"{same_one}; max|d| {err})")
+        # the budget-binding case, both directions
+        cut = args[:5] + (BUDGET,) + args[6:]
+        got, ref = (propagate_pair(pos0, v0, zero, ov, *cut),
+                    propagate_pair_plain(pos0, v0, zero, ov, *cut))
+        same_cut = [_same_bits(a, b) for a, b in zip(got, ref)]
+        ncut = int((ref[6] > BUDGET).sum())
+        check(all(same_cut) and ncut > len(pos0) // 10,
+              f"{name} {wire}: at a budget of {BUDGET} points the "
+              f"two-direction kernel differs from the plain loop "
+              f"({same_cut}) or the budget cut only {ncut} lines")
+        del got, ref
+        # the quantizer does not steer: both wires visit the same voxels
+        # in the same steps.  A stream is active at step t + 1 exactly
+        # when it advanced at step t.
         if wire == "f32":
-            # the quantizer does not steer: both wires visit the same
-            # voxels in the same steps.  A stream is active at step t + 1
-            # exactly when it advanced at step t.
-            nvisit = int((seen.hits > 0).sum())
-            moved = (fwd_p[0][1:] != fwd_p[0][:-1]).any(dim=-1)
-            steps = len(pos0) + int(moved.sum())
-            del moved
-        del seen
-        bwd_p = propagate_dir_plain(pos0, neg, fwd_p[2], ov, *args)
-        same = [_same_bits(a, b) for a, b in zip(fwd + bwd, fwd_p + bwd_p)]
-        err = _max_err(fwd + bwd, fwd_p + bwd_p)
-        check(all(same), f"{name} {wire}: the kernel differs from the plain "
-              f"loop (outputs out, saved, npts, anchor of both directions "
-              f"equal: {same}; max|d| {err})")
-        del bwd, fwd_p, bwd_p
+            nvisit = [int((h > 0).sum()) for h in hits]
+            nvisit_pair = int(((hits[0] + hits[1]) > 0).sum())
+            steps = []
+            for out in (fwd_p[0], bwd_p[0]):
+                moved = (out[1:] != out[:-1]).any(dim=-1)
+                steps.append(len(pos0) + int(moved.sum()))
+                del moved
+        del hits, seen, bwd, fwd_p, bwd_p, want
 
         def kern():
-            return propagate_dir(pos0, v0, zero, ov, *args)
+            return propagate_pair(pos0, v0, zero, ov, *args)
 
         def plain():
+            return propagate_pair_plain(pos0, v0, zero, ov, *args)
+
+        def one():
+            nf = propagate_dir(pos0, v0, zero, ov, *args)[2]
+            return propagate_dir(pos0, neg, nf, ov, *args)
+
+        def kern_fwd():
+            return propagate_dir(pos0, v0, zero, ov, *args)
+
+        def plain_fwd():
             return propagate_dir_plain(pos0, v0, zero, ov, *args)
 
         kern()
+        one()
         plain()
         torch.cuda.synchronize()
         turns = [cuda_ms(plain, 3), cuda_ms(kern, 20), cuda_ms(kern, 20),
                  cuda_ms(plain, 3)]
+        one_ms = (cuda_ms(one, 20) + cuda_ms(one, 20)) / 2
+        turns_fwd = [cuda_ms(plain_fwd, 3), cuda_ms(kern_fwd, 20),
+                     cuda_ms(kern_fwd, 20), cuda_ms(plain_fwd, 3)]
         g_ms, g_out, graph = graph_ms(plain, 10)
-        g_same = all(_same_bits(a, b) for a, b in zip(g_out, fwd))
+        g_same = all(_same_bits(a, b) for a, b in zip(g_out, pair))
         del graph, g_out
         check(g_same, f"{name} {wire}: the graph replay of the plain loop "
               "differs from the kernel")
-        field_bytes = nvisit * nvec * 3 * ov.element_size()
-        nbytes = (pos0.nbytes + v0.nbytes + zero.nbytes + field_bytes
-                  + sum(t.nbytes for t in fwd))
-        flops = steps * (PROP_FLOPS_STEP + nvec * PROP_FLOPS_CAND
-                         + (PROP_FLOPS_DELTA if wire == "i6" else 0))
-        whole = bound_ms(nbytes - field_bytes + ov.nbytes, flops)
+        state = pos0.nbytes + v0.nbytes + zero.nbytes
+        vox = ov.shape[1] * 3 * ov.element_size()
+        per_step = PROP_FLOPS_STEP + nvec * PROP_FLOPS_CAND + (
+            PROP_FLOPS_DELTA if wire == "i6" else 0)
+        nbytes = state + nvisit_pair * vox + sum(t.nbytes for t in pair)
+        flops = (steps[0] + steps[1]) * per_step
+        whole = bound_ms(nbytes - nvisit_pair * vox + ov.nbytes, flops)
         rec = dict(max_abs_err=err, ms=(turns[1] + turns[2]) / 2,
                    plain_ms=(turns[0] + turns[3]) / 2, graph_ms=g_ms,
-                   streams=len(pos0), nsteps=nsteps, nvec=nvec,
-                   active_steps=steps, voxels_visited=nvisit,
-                   voxels=ov.shape[0], nbytes=nbytes,
+                   two_launches_ms=one_ms, streams=len(pos0), nsteps=nsteps,
+                   nvec=nvec, active_steps=steps, voxels_visited=nvisit_pair,
+                   voxels=ov.shape[0], nbytes=nbytes, flops=flops,
                    bound_ms_whole_field=whole["bound_ms"],
+                   budget_case=dict(len_max=BUDGET, lines_cut=ncut),
                    **bound_ms(nbytes, flops))
-        records[wire] = rec
+        nbytes_f = state + nvisit[0] * vox + sum(t.nbytes for t in fwd)
+        rec_f = dict(max_abs_err=err, ms=(turns_fwd[1] + turns_fwd[2]) / 2,
+                     plain_ms=(turns_fwd[0] + turns_fwd[3]) / 2,
+                     streams=len(pos0), nsteps=nsteps, nvec=nvec,
+                     active_steps=steps[0], voxels_visited=nvisit[0],
+                     nbytes=nbytes_f, flops=steps[0] * per_step,
+                     **bound_ms(nbytes_f, steps[0] * per_step))
+        records[wire] = dict(pair=rec, dir=rec_f)
         log(f"[propagate] {name} {wire}: {len(pos0)} streams x {nsteps} "
-            f"steps, nvec {nvec}: kernel bit-equal to the plain loop on "
-            f"both directions; one direction: kernel {rec['ms']:.3f} ms, "
-            f"plain loop {rec['plain_ms']:.3f} ms, its CUDA-graph replay "
-            f"{g_ms:.3f} ms (turns plain, kernel, kernel, plain: "
-            f"{', '.join(f'{t:.3f}' for t in turns)}); bound "
+            f"steps, nvec {nvec}: the two-direction kernel and the "
+            f"one-direction kernel on each direction bit-equal to the plain "
+            f"loop, and the two-direction kernel at a budget of {BUDGET} "
+            f"points ({ncut} lines cut); both directions: kernel "
+            f"{rec['ms']:.3f} ms in one launch ({rec['ms'] / 2:.4f} ms a "
+            f"direction), the one-direction kernel launched for each "
+            f"{one_ms:.3f} ms, plain loop {rec['plain_ms']:.3f} ms, its "
+            f"CUDA-graph replay {g_ms:.3f} ms (turns plain, kernel, kernel, "
+            f"plain: {', '.join(f'{t:.3f}' for t in turns)}); bound "
             f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"({nbytes / 1e6:.1f} MB with {nvisit} of the field's "
-            f"{ov.shape[0]} voxels visited, {field_bytes / 1e6:.1f} of "
-            f"{ov.nbytes / 1e6:.1f} MB; {flops / 1e9:.3f} GFLOP over {steps} "
-            f"active stream-steps), share "
+            f"({nbytes / 1e6:.1f} MB with {nvisit_pair} of the field's "
+            f"{ov.shape[0]} voxels visited; {flops / 1e9:.3f} GFLOP over "
+            f"{steps[0]} + {steps[1]} active stream-steps), share "
             f"{100 * rec['bound_ms'] / rec['ms']:.1f}%; reading the whole "
             f"field {whole['bound_ms']:.4f} ms, share "
             f"{100 * whole['bound_ms'] / rec['ms']:.1f}%")
-        del fwd
+        log(f"[propagate] {name} {wire}: the forward direction alone: "
+            f"kernel {rec_f['ms']:.3f} ms, plain loop "
+            f"{rec_f['plain_ms']:.3f} ms (turns "
+            f"{', '.join(f'{t:.3f}' for t in turns_fwd)}); bound "
+            f"{rec_f['bound_ms']:.4f} ms by {rec_f['bound_by']} "
+            f"({nbytes_f / 1e6:.1f} MB, {nvisit[0]} voxels visited), share "
+            f"{100 * rec_f['bound_ms'] / rec_f['ms']:.1f}%")
+        if scaling:
+            zs = torch.zeros(len(pos_all), dtype=torch.int32,
+                             device=pos0.device)
+            ms = [cuda_ms(lambda k=k: propagate_pair(
+                pos_all[:k], v_all[:k], zs[:k], ov, *args), 10)
+                for k in SCALING if k <= len(pos_all)]
+            rec["scaling_ms"] = dict(zip(SCALING, ms))
+            log(f"[propagate] {name} {wire}: the two-direction kernel at "
+                + ", ".join(f"{k} streams {t:.4f} ms" for k, t
+                            in rec["scaling_ms"].items()))
+        del fwd, pair
         torch.cuda.empty_cache()
     log(f"[propagate] {name}: phase {time.time() - t0:.1f} s")
     return records
@@ -1013,7 +1118,7 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
     stream count within 0.5% (a u12 fit may move a peak or an FA
     threshold); and its i6 stream against an f32 stream of the same
     peaks: equal stream count and npts, .trk points within 2 * step / 31.
-    gqi_fused launches once, propagate_dir twice a chunk.  Returns the
+    gqi_fused launches once, propagate_pair once a chunk.  Returns the
     kernels' launches."""
     import numpy as np
     import torch
@@ -1030,10 +1135,10 @@ def phase_wire_main(dwi, mask, seed, ref, t_ref, sink_ref, d):
                                       wire="u12", point_wire="i6")
     counts = read_counts()
     nprop = stream_chunks(3 * int((seed.vol > 0).sum()))
-    check(counts["gqi_fused"] == 1 and counts["propagate_dir"] == nprop
+    check(counts["gqi_fused"] == 1 and counts["propagate_pair"] == nprop
           and sum(counts.values()) == 1 + nprop,
           f"the u12/i6 pipeline launched {counts}, not gqi_fused once and "
-          f"propagate_dir {nprop} times")
+          f"propagate_pair {nprop} times")
     check(guard.made >= 1, "the i6 stream ran no guarded launch")
     check(sk.fused >= 1, "the i6 stream did not take the fused .trk decode")
 
@@ -1136,7 +1241,7 @@ def phase_main(mesh):
         phase_sum3()
         pk1 = tt.peaks_to_ovecs(gqi, device=True).first(1)
         work = StreamWork(pk1, fa=dti.fa, mask=mask, nsub=3, f_thresh=0.0)
-        prop = phase_propagate("main path", work, seed)
+        prop = phase_propagate("main path", work, seed, scaling=True)
         del work
         prop["stream_write"] = kernel_vs_plain(
             "main path", lambda trk_: tt.stream(
@@ -1160,9 +1265,9 @@ def phase_main(mesh):
         f" GiB")
 
     check(launches == 1, "the GQI stage did not launch its kernel once")
-    check(counts["propagate_dir"] == nprop,
-          f"the stream launched propagate_dir {counts['propagate_dir']} "
-          f"times, not twice for each of its chunks ({nprop})")
+    check(counts["propagate_pair"] == nprop,
+          f"the stream launched propagate_pair {counts['propagate_pair']} "
+          f"times, not once for each of its chunks ({nprop})")
     check(sum(counts.values()) == launches + nprop,
           f"the main path launched other kernels: {counts}")
     fa = dti.fa.vol[m]
@@ -1510,10 +1615,10 @@ def phase_rumba(dwi, mask, ax, mesh):
                 pk, mask=mask, seed=seed, nsub=3, wire="f32",
                 trk_sink=trk_), d)
     nprop = stream_chunks(3 * int((seed.vol > 0).sum()))
-    check(chain_counts["propagate_dir"] == nprop
+    check(chain_counts["propagate_pair"] == nprop
           and sum(chain_counts.values()) == nprop,
           f"the RUMBA chain's stream launched {chain_counts}, not "
-          f"propagate_dir {nprop} times")
+          f"propagate_pair {nprop} times")
     (tract, t_stream, back), (tract_f, t_f, back_f) = run["i6"], run["f32"]
     npts = int(np.sum(tract.npts))
     same_n = np.array_equal(np.asarray(back.npts), np.asarray(back_f.npts))
@@ -1916,10 +2021,10 @@ def phase_dsi(mesh):
     check(tract.n_count > 0, "no streamlines from the DSI peaks")
     check(back.n_count == tract.n_count and int(np.sum(back.npts)) == npts,
           f".trk holds {back.n_count} lines, the Tract {tract.n_count}")
-    check(chain_counts["propagate_dir"] == nprop
+    check(chain_counts["propagate_pair"] == nprop
           and sum(chain_counts.values()) == nprop,
           f"the DSI chain's stream launched {chain_counts}, not "
-          f"propagate_dir {nprop} times")
+          f"propagate_pair {nprop} times")
     return chain_counts, stream_write
 
 
@@ -2159,6 +2264,8 @@ def mode_chunk(name, calls, n=None):
     nsteps, s = saved.shape
     del bwd, bwd_p
     torch.cuda.empty_cache()
+    if lcm:
+        extra_lcm = lcm_budget_and_scaling(kern, plain, fwd_args, bwd_args)
 
     def k():
         return kern(*fwd_args)
@@ -2179,7 +2286,7 @@ def mode_chunk(name, calls, n=None):
         moved = (out[1:] != out[:-1]).any(dim=-1)
         steps = s + int(moved.sum())
         flops = steps * (LCM_FLOPS_STEP + nvec * LCM_FLOPS_CAND)
-        extra = dict(nvec=nvec)
+        extra = dict(nvec=nvec, **extra_lcm)
     else:
         # a stream searches at its saved steps and at the one after
         n_saved = saved.sum(dim=0)
@@ -2213,6 +2320,41 @@ def mode_chunk(name, calls, n=None):
                                         cells / steps, field)
         rec["cells_per_active_step"] = cells / steps
     return rec
+
+
+def lcm_budget_and_scaling(kern, plain, fwd_args, bwd_args, budget=20):
+    """[modes] The LCM kernel at a budget of `budget` points, which cuts
+    most lines of the chunk, against the plain loop on both directions,
+    bit for bit; and the forward direction's time at the chunk's first
+    32,768 and 65,536 streams and all of it.  Returns the record's
+    additions."""
+    import torch
+    li = 14                               # len_max among the arguments
+    f_args = fwd_args[:li] + (budget,) + fwd_args[li + 1:]
+    fwd, fwd_p = kern(*f_args), plain(*f_args)
+    b_args = bwd_args[:3] + (fwd_p[3],) + bwd_args[4:li] + (budget,) \
+        + bwd_args[li + 1:]
+    bwd, bwd_p = kern(*b_args), plain(*b_args)
+    same = [_same_bits(a, b) for a, b in zip(fwd + bwd, fwd_p + bwd_p)]
+    ncut = int((bwd_p[3] > budget).sum())
+    del fwd, bwd, fwd_p, bwd_p
+    check(all(same) and ncut > len(fwd_args[1]) // 10,
+          f"lcm: at a budget of {budget} points the kernel differs from "
+          f"the plain loop ({same}) or the budget cut only {ncut} lines")
+    s = len(fwd_args[1])
+    sizes = [k for k in (32_768, 65_536) if k < s] + [s]
+    ms = {}
+    for k in sizes:
+        a = tuple(x[:k] if 1 <= i <= 3 else x for i, x in enumerate(fwd_args))
+        kern(*a)
+        ms[k] = cuda_ms(lambda: kern(*a), 5)
+    torch.cuda.empty_cache()
+    log(f"[modes] lcm chunk: kernel bit-equal to the plain loop on both "
+        f"directions at a budget of {budget} points ({ncut} lines cut); the "
+        f"forward direction at " + ", ".join(f"{k} streams {t:.3f} ms"
+                                             for k, t in ms.items()))
+    return dict(budget_case=dict(len_max=budget, lines_cut=ncut),
+                scaling_ms=ms)
 
 
 def _rows(outs, sl):
@@ -2569,7 +2711,7 @@ def main():
     # launches of each kernel on the mesh paths, by path
     mesh_launches = {"pipeline": mesh_main}
     # the propagation kernel's launches on each stream, by path
-    stream_launches = {"pipeline": main_counts["propagate_dir"]}
+    stream_launches = {"pipeline": main_counts["propagate_pair"]}
     phase_small()
 
     t1 = time.time()
@@ -2579,7 +2721,7 @@ def main():
     records.update(phase_tv(mask))
     counts, counts_b16, counts_mesh, chain, prop_r = phase_rumba(
         dwi, mask, ax, mesh)
-    stream_launches["rumba_chain_i6"] = chain["propagate_dir"]
+    stream_launches["rumba_chain_i6"] = chain["propagate_pair"]
     mesh_launches["rumba"] = counts_mesh
     # the 600-iteration fit builds its signal on the default u12 wire
     wire_launches["rumba_u12"] = counts
@@ -2596,7 +2738,7 @@ def main():
     phase_structens(mean_dwi, mesh)
     del mean_dwi
     dsi_chain, dsi_sw = phase_dsi(mesh)
-    stream_launches["dsi_chain"] = dsi_chain["propagate_dir"]
+    stream_launches["dsi_chain"] = dsi_chain["propagate_pair"]
     mode_records, mode_launches = phase_modes()
     dsi_small = phase_new_small()
     phase_cli(dsi_small)
@@ -2608,18 +2750,27 @@ def main():
     check(not any(m == "fibers_tpu" or m.startswith("fibers_tpu.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] {time.time() - t0:.1f} s")
-    # the propagation kernel's record: the main path's f32 chunk, its i6
-    # chunk, the RUMBA chain's chunks, stream + write of the three chains
-    # (kernel runs, plain loop) and the launches per chunk and step
+    # the propagation kernels' records: the main path's f32 chunk, its i6
+    # chunk, the RUMBA chain's chunks (both directions in one launch, and
+    # the forward direction alone), stream + write of the three chains
+    # (kernel runs, plain loop) and the launches per chunk and step.  The
+    # one-direction kernel's path is full_recon_step.
     main_sw = prop.pop("stream_write")
     rumba_sw = prop_r.pop("stream_write")
-    records["propagate_dir"] = dict(
-        prop["f32"], i6=prop["i6"], rumba_chain=prop_r,
-        library_call="none: no PyTorch call integrates streamlines",
-        stream_launches_by_path=stream_launches,
+    none = "none: no PyTorch call integrates streamlines"
+    records["propagate_pair"] = dict(
+        prop["f32"]["pair"], i6=prop["i6"]["pair"],
+        rumba_chain={w: r["pair"] for w, r in prop_r.items()},
+        library_call=none, stream_launches_by_path=stream_launches,
         launches_per_chunk_and_step=per_step,
         stream_write_s={"pipeline": main_sw[:2], "rumba_chain_f32":
                         rumba_sw[:2], "dsi_chain": dsi_sw[:2]})
+    records["propagate_dir"] = dict(
+        prop["f32"]["dir"], i6=prop["i6"]["dir"],
+        rumba_chain={w: r["dir"] for w, r in prop_r.items()},
+        library_call=none, launches_path="full_recon_step on the mesh")
+    launches["propagate_dir"] = mesh_launches["full_recon_step"][
+        "propagate_dir"]
     # the mode kernels' records: the first chunk of each mode's run, its
     # stream + write, and the launches on that run (LCM on LCM_SIDE^2,
     # micro on MICRO_SIDE^2 x 2)
@@ -2629,7 +2780,7 @@ def main():
         records[name] = dict(
             mode_records[mode], launches_by_path=mode_launches,
             library_call="none: no PyTorch call integrates streamlines")
-    # no single PyTorch call computes any of the eight functions; gqi_fused
+    # no single PyTorch call computes any of the nine functions; gqi_fused
     # carries the product alone as its partial yardstick
     kernels = []
     for name, src, site, on_path in KERNELS:

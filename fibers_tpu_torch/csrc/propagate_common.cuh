@@ -36,6 +36,40 @@ __device__ __forceinline__ long long round_i64(float x)
     return (long long)rintf(x);
 }
 
+// dot3 without torch's leading zeros: the same sum but for the sign of a
+// zero, which no comparison, |.|, square root or isfinite sees.
+__device__ __forceinline__ float dot3_nz(float a0, float a1, float a2,
+                                        float b0, float b1, float b2)
+{
+    return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a2, b2)),
+                     __fmul_rn(a1, b1));
+}
+
+// The voxel coordinate of x: torch.round, then .to(int64); the 32-bit
+// path clamps it to +-2^30.  A clamped coordinate lies outside the volume
+// (each dimension is below 2^29 there: propagate.py:_index_bits), and so
+// does a clamped coordinate plus a window offset below 2^29
+// (propagate_micro.cu:load_tile); the difference of a clamped coordinate
+// and one inside the volume fits an int.
+constexpr long long kReach = 1ll << 30;
+
+template <typename Idx>
+__device__ __forceinline__ Idx voxel(float x);
+
+template <>
+__device__ __forceinline__ long long voxel<long long>(float x)
+{
+    return round_i64(x);
+}
+
+// cvt.rni.s32.f32 rounds half to even like rint, gives 0 for NaN and
+// saturates; either way the clamp gives what round_i64's would.
+template <>
+__device__ __forceinline__ int voxel<int>(float x)
+{
+    return max(min(__float2int_rn(x), (int)kReach), -(int)kReach);
+}
+
 // ops/kernels/propagate.py:_flat_index: the flat voxel index of an
 // integer position, 0 where it lies outside the volume; inb says which.
 __device__ __forceinline__ long long flat_index(long long ix, long long iy,

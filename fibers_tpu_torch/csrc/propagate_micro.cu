@@ -71,6 +71,8 @@
 namespace {
 
 using prop::dot3;
+using prop::dot3_nz;
+using prop::voxel;
 
 constexpr int kThreads = 256;               // 8 warps a block
 constexpr int kWarps = kThreads / 32;
@@ -81,7 +83,6 @@ constexpr int kTile = 2048;                 // window cells in shared memory
 // cudaFuncSetAttribute
 static_assert(kTile * 6 * 4 <= 48 * 1024, "the window tile outgrows 48 KiB");
 constexpr unsigned kFull = 0xffffffffu;
-constexpr long long kReach = 1ll << 30;     // the 32-bit path's clamp
 
 struct MicroParams {
     const float* pos0;      // [S, 3]
@@ -114,34 +115,6 @@ struct Window {
 __device__ __forceinline__ int slot(int c)
 {
     return (c & ~(kSpan - 1)) | ((c & 31) << 2) | ((c >> 5) & 3);
-}
-
-// The voxel coordinate of x: torch.round, then .to(int64); the 32-bit
-// path clamps it to +-2^30, which keeps every window cell of a coordinate
-// beyond that outside the volume (each dimension below 2^29:
-// propagate_micro.py:_index_bits; every offset within +-2^29: load_tile).
-template <typename Idx>
-__device__ __forceinline__ Idx voxel(float x);
-
-template <>
-__device__ __forceinline__ long long voxel<long long>(float x)
-{
-    return prop::round_i64(x);
-}
-
-template <>
-__device__ __forceinline__ int voxel<int>(float x)
-{
-    return (int)max(min(prop::round_i64(x), kReach), -kReach);
-}
-
-// The cone test's sum of three: torch's order without its leading zeros,
-// which change only the sign of a zero sum.
-__device__ __forceinline__ float cone_dot(float a0, float a1, float a2,
-                                          float b0, float b1, float b2)
-{
-    return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a2, b2)),
-                     __fmul_rn(a1, b1));
 }
 
 // Cells [base, base + n) of the window into shared memory by the block,
@@ -375,12 +348,12 @@ micro_kernel(const MicroParams p)
                     const float4 z = ((const float4*)win.dz)[k];
                     const float sc = p.search_cos;
                     const unsigned four =
-                        (unsigned)(cone_dot(vx, vy, vz, x.x, y.x, z.x) > sc)
-                        | (unsigned)(cone_dot(vx, vy, vz, x.y, y.y, z.y)
+                        (unsigned)(dot3_nz(vx, vy, vz, x.x, y.x, z.x) > sc)
+                        | (unsigned)(dot3_nz(vx, vy, vz, x.y, y.y, z.y)
                                      > sc) << 1
-                        | (unsigned)(cone_dot(vx, vy, vz, x.z, y.z, z.z)
+                        | (unsigned)(dot3_nz(vx, vy, vz, x.z, y.z, z.z)
                                      > sc) << 2
-                        | (unsigned)(cone_dot(vx, vy, vz, x.w, y.w, z.w)
+                        | (unsigned)(dot3_nz(vx, vy, vz, x.w, y.w, z.w)
                                      > sc) << 3;
                     bits |= four << (4 * g);
                 }

@@ -144,8 +144,11 @@ def _declare(lib):
     lib.tv_sweep_blocks_per_sm.restype = ci
     cf = ctypes.c_float
     lib.propagate_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cf] * 4
-                                     + [ci] * 3 + [cf] * 3 + [vp] * 5)
+                                     + [ci] * 3 + [cf] * 3 + [vp] * 7
+                                     + [ci, ci, vp])
     lib.propagate_launch.restype = ci
+    lib.propagate_resident_threads.argtypes = [ci, ci, ci]
+    lib.propagate_resident_threads.restype = ci
     lib.propagate_sum3_selfcheck.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.propagate_sum3_selfcheck.restype = ci
     lib.propagate_micro_launch.argtypes = ([vp] * 7 + [ci] * 6 + [cf] * 5
@@ -155,10 +158,12 @@ def _declare(lib):
     ll, cu = ctypes.c_longlong, ctypes.c_uint
     lib.propagate_micro_window_selfcheck.argtypes = [vp] * 3 + [ll] * 3 + [vp]
     lib.propagate_micro_window_selfcheck.restype = ci
-    lib.propagate_lcm_launch.argtypes = ([vp] * 8 + [ci] * 8 + [cu] * 2
+    lib.propagate_lcm_launch.argtypes = ([vp] * 9 + [ci] * 8 + [cu] * 2
                                          + [cf] * 3 + [ci] * 3 + [cf] * 3
-                                         + [vp] * 6)
+                                         + [vp] * 6 + [ci, vp])
     lib.propagate_lcm_launch.restype = ci
+    lib.propagate_lcm_resident_threads.argtypes = [ci]
+    lib.propagate_lcm_resident_threads.restype = ci
     lib.propagate_lcm_selfcheck.argtypes = [ci, vp, vp, ll, cu, cu, ci, vp]
     lib.propagate_lcm_selfcheck.restype = ci
 

@@ -1,5 +1,6 @@
-"""One direction of the deterministic streamline integrator: the
-hand-written CUDA kernel and its plain PyTorch version.
+"""The deterministic streamline integrator, one direction or both
+directions of a chunk: the hand-written CUDA kernels and their plain
+PyTorch versions.
 
 Counterpart of `fibers_tpu/tract/stream.py:_propagate`, the jitted
 `lax.scan` over the step function (XLA, not Pallas).  All S streams of a
@@ -7,9 +8,10 @@ chunk advance `nsteps` steps from (pos0, vec0) through the flat
 orientation field [nx*ny*nz, nvec, 3]: the voxel of the next position,
 the greedy max-|cos| candidate with sign flip, the save of the current
 point (or of its error-feedback delta), the three stop rules and the EMA
-smoothing.  The kernel is `fibers_tpu_torch/csrc/propagate.cu`: one
-thread per stream runs every step with its state in registers, so a
-direction is one launch where the plain loop makes ~63 a step.
+smoothing.  The kernels are in `fibers_tpu_torch/csrc/propagate.cu`: a
+thread runs every step of a stream with its state in registers, so a
+direction (`propagate_dir`) or both directions (`propagate_pair`, two
+chains a thread) are one launch where the plain loop makes ~63 a step.
 
 A CUDA tensor always goes to the kernel, or raises.  A CPU tensor goes to
 `propagate_dir_plain`, the step loop in torch operations.  On the card
@@ -28,9 +30,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["propagate_dir", "propagate_dir_plain", "sum3_selfcheck"]
+__all__ = ["propagate_dir", "propagate_dir_plain", "propagate_pair",
+           "propagate_pair_plain", "sum3_selfcheck"]
 
 _INT32_MAX = 2 ** 31 - 1
+
+
+def _index_bits(shape3) -> int:
+    """The kernels' index arithmetic for a volume of `shape3`: 32-bit when
+    it holds fewer than 2^31 voxels and each dimension is below 2^29 (the
+    kernels then clamp a voxel coordinate to +-2^30, which keeps it, and a
+    micro window cell of it, outside the volume), else 64-bit."""
+    if int(np.prod([int(n) for n in shape3])) < 2 ** 31 \
+            and max(int(n) for n in shape3) < 2 ** 29:
+        return 32
+    return 64
 
 
 def _flat_index(ipos, shape3):
@@ -134,6 +148,20 @@ def propagate_dir_plain(pos0, vec0, npts0, ovecs_flat, nsteps, shape3,
     return outs, saved, npts, pos_q
 
 
+def propagate_pair_plain(pos0, vec0, npts0, ovecs_flat, nsteps, shape3,
+                         step_size, cosang_thresh, smooth_coeff, len_max,
+                         emit="points", qscale=254.0, dmax=127):
+    """Plain PyTorch version of `propagate_pair`: the forward direction,
+    then the backward one from its counts (two `propagate_dir_plain`
+    calls).  Same arguments and results."""
+    args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff,
+            len_max, emit, qscale, dmax)
+    fwd = propagate_dir_plain(pos0, vec0, npts0, ovecs_flat, *args)
+    out_b, saved_b, npts_b, _ = propagate_dir_plain(pos0, -vec0, fwd[2],
+                                                    ovecs_flat, *args)
+    return (*fwd, out_b, saved_b, npts_b)
+
+
 def _check_array(name, what, t, shape, dtype):
     """t must be a `dtype` tensor of `shape` (None: any length >= 1)."""
     if t.dim() != len(shape) or any(
@@ -171,11 +199,64 @@ def _check_step_loop(name, pos0, vec0, npts0, nsteps, emit, dmax,
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def _check(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, emit, dmax):
-    _check_step_loop("propagate_dir", pos0, vec0, npts0, nsteps, emit, dmax,
+def _check(name, pos0, vec0, npts0, ovecs_flat, nsteps, shape3, emit,
+           dmax):
+    _check_step_loop(name, pos0, vec0, npts0, nsteps, emit, dmax,
                      ovecs_flat=ovecs_flat)
-    _check_array("propagate_dir", "ovecs_flat", ovecs_flat,
+    _check_array(name, "ovecs_flat", ovecs_flat,
                  (int(np.prod(shape3)), None, 3), torch.float32)
+
+
+def _launch(name, pair, pos0, vec0, npts0, ovecs_flat, nsteps, shape3,
+            step_size, cosang_thresh, smooth_coeff, len_max, emit, qscale,
+            dmax):
+    """One launch of the one-direction (pair False) or two-direction
+    kernel on the current stream of the tensors' card: the outputs of the
+    forward (or only) direction, then with `pair` the backward one's out,
+    saved and npts; and whether it launched (not for S = 0 or nsteps =
+    0).  Raises if the launch is refused."""
+    dev = pos0.device
+    deltas = emit == "deltas"
+    s = pos0.shape[0]
+
+    def outputs():
+        return (torch.empty((nsteps, s, 3), device=dev,
+                            dtype=torch.int8 if deltas else torch.float32),
+                torch.empty((nsteps, s), dtype=torch.bool, device=dev),
+                torch.empty_like(npts0))
+
+    out, saved, npts = outputs()
+    anchor = torch.empty_like(pos0)
+    back = outputs() if pair else (None, None, None)
+    if s == 0 or nsteps == 0:
+        npts.copy_(npts0)
+        anchor.copy_(pos0)
+        if pair:
+            back[2].copy_(npts0)
+        return (out, saved, npts, anchor) + (back if pair else ()), False
+    from ._build import load_library
+    lib = load_library()
+    f32 = np.float32
+    nx, ny, nz = (int(n) for n in shape3)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the scalars as torch's kernels take Python floats: cast to f32
+        err = lib.propagate_launch(
+            pos0.data_ptr(), vec0.data_ptr(), npts0.data_ptr(),
+            ovecs_flat.data_ptr(), s, int(nsteps), ovecs_flat.shape[1],
+            nx, ny, nz, f32(step_size), f32(cosang_thresh),
+            f32(smooth_coeff), f32(1.0 - smooth_coeff),
+            int(smooth_coeff != 0.0), min(int(len_max), _INT32_MAX),
+            int(deltas), f32(qscale), f32(1.0 / qscale), f32(dmax),
+            out.data_ptr(), saved.data_ptr(), npts.data_ptr(),
+            anchor.data_ptr(), *(ptr(t) for t in back), int(pair),
+            _index_bits(shape3), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError "
+                           f"{err} (S={s}, nsteps={nsteps}, "
+                           f"nvec={ovecs_flat.shape[1]})")
+    return (out, saved, npts, anchor) + (back if pair else ()), True
 
 
 def propagate_dir(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
@@ -198,7 +279,8 @@ def propagate_dir(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
     int32, anchor [S, 3] f32): `anchor` is the quantized chain's final
     position (pos0 with emit="points").  On the card: one launch on the
     current stream of the tensors' device, nothing read back."""
-    _check(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, emit, dmax)
+    _check("propagate_dir", pos0, vec0, npts0, ovecs_flat, nsteps, shape3,
+           emit, dmax)
     args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff,
             len_max, emit, qscale, dmax)
     dev = pos0.device
@@ -206,42 +288,47 @@ def propagate_dir(pos0, vec0, npts0, ovecs_flat, nsteps, shape3, step_size,
         return propagate_dir_plain(pos0, vec0, npts0, ovecs_flat, *args)
     if dev.type != "cuda":
         raise ValueError(f"propagate_dir: no kernel for device {dev}")
-    deltas = emit == "deltas"
-    s = pos0.shape[0]
-    out = torch.empty((nsteps, s, 3), device=dev,
-                      dtype=torch.int8 if deltas else torch.float32)
-    saved = torch.empty((nsteps, s), dtype=torch.bool, device=dev)
-    npts = torch.empty_like(npts0)
-    anchor = torch.empty_like(pos0)
-    if s == 0 or nsteps == 0:
-        npts.copy_(npts0)
-        anchor.copy_(pos0)
-        return out, saved, npts, anchor
-    from ._build import load_library
-    lib = load_library()
-    f32 = np.float32
-    nx, ny, nz = (int(n) for n in shape3)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        # the scalars as torch's kernels take Python floats: cast to f32
-        err = lib.propagate_launch(
-            pos0.data_ptr(), vec0.data_ptr(), npts0.data_ptr(),
-            ovecs_flat.data_ptr(), s, int(nsteps), ovecs_flat.shape[1],
-            nx, ny, nz, f32(step_size), f32(cosang_thresh),
-            f32(smooth_coeff), f32(1.0 - smooth_coeff),
-            int(smooth_coeff != 0.0), min(int(len_max), _INT32_MAX),
-            int(deltas), f32(qscale), f32(1.0 / qscale), f32(dmax),
-            out.data_ptr(), saved.data_ptr(), npts.data_ptr(),
-            anchor.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"propagate_dir: kernel launch failed with "
-                           f"cudaError {err} (S={s}, nsteps={nsteps}, "
-                           f"nvec={ovecs_flat.shape[1]})")
-    propagate_dir.launches += 1
-    return out, saved, npts, anchor
+    outs, launched = _launch("propagate_dir", False, pos0, vec0, npts0,
+                             ovecs_flat, *args)
+    propagate_dir.launches += launched
+    return outs
 
 
 propagate_dir.launches = 0
+
+
+def propagate_pair(pos0, vec0, npts0, ovecs_flat, nsteps, shape3,
+                   step_size, cosang_thresh, smooth_coeff, len_max,
+                   emit="points", qscale=254.0, dmax=127):
+    """Both directions of the S streams at pos0 [S, 3] f32: forward along
+    vec0 [S, 3] f32 with npts0 [S] int32 points already on the lines, and
+    backward along -vec0 with the forward counts, so that both share one
+    length budget (reference: src/stream.jl:648-686) -- `propagate_dir`
+    for (vec0, npts0), then for (-vec0, its npts).  Arguments as
+    `propagate_dir`'s.
+
+    Returns (out, saved, npts, anchor, out_b, saved_b, npts_b): the
+    forward direction's four results and the backward direction's out,
+    saved and npts (its total count, forward points included); the
+    backward anchor is not kept.  On the card: one launch, two chains a
+    thread, on the current stream of the tensors' device, nothing read
+    back."""
+    _check("propagate_pair", pos0, vec0, npts0, ovecs_flat, nsteps, shape3,
+           emit, dmax)
+    args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff,
+            len_max, emit, qscale, dmax)
+    dev = pos0.device
+    if dev.type == "cpu":
+        return propagate_pair_plain(pos0, vec0, npts0, ovecs_flat, *args)
+    if dev.type != "cuda":
+        raise ValueError(f"propagate_pair: no kernel for device {dev}")
+    outs, launched = _launch("propagate_pair", True, pos0, vec0, npts0,
+                             ovecs_flat, *args)
+    propagate_pair.launches += launched
+    return outs
+
+
+propagate_pair.launches = 0
 
 
 def sum3_selfcheck(n: int = 1 << 22, device="cuda", seed: int = 0) -> int:

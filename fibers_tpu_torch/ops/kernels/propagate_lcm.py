@@ -8,8 +8,11 @@ advance `nsteps` steps: while a stream stays in its voxel it continues
 along the vector it chose last; entering a new voxel it draws the exit
 edge from the voxel's local connection matrix (LCM) by Gumbel-max and
 takes the vector best aligned with the jump to that edge.  The kernel is
-`fibers_tpu_torch/csrc/propagate_lcm.cu`: one thread per stream, so a
-direction is one launch where the plain loop makes a few hundred a step.
+`fibers_tpu_torch/csrc/propagate_lcm.cu`: a thread a stream in
+persistent blocks that keep their threads busy as streams stop, the draw
+computed only where and as far as it can matter, so a direction is one
+launch (after a small one that tables what each step reads of the LCM
+rows) where the plain loop makes a few hundred a step.
 
 The draws are counter-based, so that both versions compute the same
 numbers: the uniform of element j of stream i of the chunk at step t is a
@@ -33,8 +36,8 @@ import numpy as np
 import torch
 
 from .propagate import (_INT32_MAX, _check_array, _check_step_loop,
-                        _flat_index, _pick_by_angle, _quantize_step,
-                        _smooth_dir, _take)
+                        _flat_index, _index_bits, _pick_by_angle,
+                        _quantize_step, _smooth_dir, _take)
 
 __all__ = ["EDGETYPE", "lcm_uniforms", "philox4x32_10", "propagate_lcm_dir",
            "propagate_lcm_dir_plain", "lcm_selfcheck"]
@@ -228,7 +231,9 @@ def propagate_lcm_dir(key, pos0, vec0, npts0, mask_flat, ovecs_flat,
     Returns (out [nsteps, S, 3], saved [nsteps, S] bool, flags [nsteps,
     S] int8 method-difference flags, npts_total [S] int32, anchor [S, 3]
     f32), as `propagate_dir` plus the flags.  On the card: one launch on
-    the current stream of the tensors' device, nothing read back."""
+    the current stream of the tensors' device (after the table of what
+    each step reads of the LCM rows, 128 bytes a voxel), nothing read
+    back."""
     _check(pos0, vec0, npts0, mask_flat, ovecs_flat, lcms_flat, dxyz, edget,
            strdims, nsteps, shape3, emit, dmax)
     dev = pos0.device
@@ -255,20 +260,30 @@ def propagate_lcm_dir(key, pos0, vec0, npts0, mask_flat, ovecs_flat,
     lib = load_library()
     f32 = np.float32
     nx, ny, nz = (int(n) for n in shape3)
+    # the stream counter, the groups' stop counts and each stream's steps;
+    # the launch clears the counters
+    scratch = torch.empty(1 + (s + 31) // 32 + s, dtype=torch.int32,
+                          device=dev)
+    # what a step entering each voxel through each edge reads of its LCM
+    # row, 32 bytes a (voxel, edge): the launch fills it
+    table = torch.empty((lcms_flat.shape[0], 4, 8), dtype=torch.float32,
+                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         # the scalars as torch's kernels take Python floats: cast to f32
         err = lib.propagate_lcm_launch(
             pos0.data_ptr(), vec0.data_ptr(), npts0.data_ptr(),
             mask_flat.data_ptr(), ovecs_flat.data_ptr(), lcms_flat.data_ptr(),
-            dxyz.data_ptr(), edget.data_ptr(), s, int(nsteps),
+            table.data_ptr(), dxyz.data_ptr(), edget.data_ptr(), s,
+            int(nsteps),
             ovecs_flat.shape[1], nx, ny, nz, int(strdims[0]),
             int(strdims[1]), int(key[0]) & _M32, int(key[1]) & _M32,
             f32(step_size), f32(smooth_coeff), f32(1.0 - smooth_coeff),
             int(smooth_coeff != 0.0), min(int(len_max), _INT32_MAX),
             int(deltas), f32(qscale), f32(1.0 / qscale), f32(dmax),
             out.data_ptr(), saved.data_ptr(), flags.data_ptr(),
-            npts.data_ptr(), anchor.data_ptr(), stream)
+            npts.data_ptr(), anchor.data_ptr(), scratch.data_ptr(),
+            _index_bits(shape3), stream)
     if err != 0:
         raise RuntimeError(f"propagate_lcm_dir: kernel launch failed with "
                            f"cudaError {err} (S={s}, nsteps={nsteps}, "
@@ -296,7 +311,14 @@ def lcm_selfcheck(n: int = 1 << 22, device="cuda", seed: int = 0) -> dict:
     - "argmax10": the draw's argmax against `torch.argmax(dim=1)` on rows
       with ties, -inf and NaN;
     - "uniforms": the kernel's uniforms against `lcm_uniforms` for 2^16
-      streams at two steps."""
+      streams at two steps;
+    - "gumbel_max": the Gumbel values above the bound the kernel's pruned
+      draw assumes (17), of all 2^24 uniforms;
+    - "draw": the kernel's draw (only the elements the entry edge keeps,
+      or all ten where its guard fails) against torch's argmax over all
+      ten elements of the masked row, on the rows of "sum10" with NaNs,
+      values below the logits' clamp and ties, each masked to an entry
+      edge's four elements or to a random subset."""
     from ._build import load_library
     lib = load_library()
     dev = torch.device(device)
@@ -311,6 +333,25 @@ def lcm_selfcheck(n: int = 1 << 22, device="cuda", seed: int = 0) -> dict:
     picks = torch.randint(0, 4, (m, 10), generator=g).float()
     picks[torch.rand((m, 10), generator=g) < 0.05] = -torch.inf
     picks[torch.rand((m, 10), generator=g) < 0.02] = torch.nan
+    # the draw's rows: "sum10"'s with NaNs, values below the clamp, ties
+    # and rows of zeros, each with the mask of an entry edge or a random one
+    drows = rows.abs().clone()
+    r = torch.rand((m, 10), generator=g)
+    drows[r < 0.03] = torch.nan
+    drows[(r >= 0.03) & (r < 0.1)] = 1e-35
+    drows[(r >= 0.1) & (r < 0.15)] = 0.25
+    drows[torch.rand(m, generator=g) < 0.05] = 0.0
+    edges = torch.from_numpy(EDGETYPE.astype(np.int64))
+    entry = torch.randint(0, 4, (m,), generator=g)
+    keep = ((edges[0][None] == entry[:, None])
+            | (edges[1][None] == entry[:, None]))
+    rand_keep = torch.rand((m, 10), generator=g) < 0.4
+    keep = torch.where((torch.rand(m, generator=g) < 0.2)[:, None],
+                       rand_keep, keep)
+    bits = (keep.long() << torch.arange(10)).sum(dim=1).float()
+    keep, drows = keep.to(dev), drows.to(dev)
+    drows_x = torch.cat([drows, bits[:, None].to(dev),
+                         torch.log(torch.clamp_min(drows, 1e-30))], dim=1)
     x_log, rows, picks = x_log.to(dev), rows.to(dev), picks.to(dev)
     k = torch.arange(1 << 24, device=dev, dtype=torch.float32) * 2.0 ** -24
     u = torch.clamp_min(k, torch.finfo(torch.float32).tiny)
@@ -334,13 +375,20 @@ def lcm_selfcheck(n: int = 1 << 22, device="cuda", seed: int = 0) -> dict:
             sum10=run(2, rows, m, torch.float32),
             argmax10=run(3, picks, m, torch.int32),
             uniforms=torch.cat([run(4, None, ns, torch.float32, t, 10)
-                                for t in (0, 1023)]))
+                                for t in (0, 1023)]),
+            draw=run(5, drows_x, m, torch.int32, 77))
+    masked = torch.where(keep, drows, 0.0)
+    logits = torch.log(torch.clamp_min(masked, 1e-30))
+    draws = -torch.log(-torch.log(lcm_uniforms(key, m, 77, dev)))
     theirs = dict(
         log=torch.log(x_log), gumbel=-torch.log(-torch.log(u)),
         sum10=rows.sum(dim=1),
         argmax10=torch.argmax(picks, dim=1).to(torch.int32),
         uniforms=torch.cat([lcm_uniforms(key, ns, t, dev).reshape(-1)
-                            for t in (0, 1023)]))
-    bits = lambda v: v.view(torch.int32)
-    return {name: int((bits(theirs[name]) != bits(ours[name])).sum())
-            for name in ours}
+                            for t in (0, 1023)]),
+        draw=torch.argmax(logits + draws, dim=1).to(torch.int32))
+    as_bits = lambda v: v.view(torch.int32)
+    got = {name: int((as_bits(theirs[name]) != as_bits(ours[name])).sum())
+           for name in ours}
+    got["gumbel_max"] = int((ours["gumbel"] > 17.0).sum())
+    return got

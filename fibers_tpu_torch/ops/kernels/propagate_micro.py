@@ -26,22 +26,11 @@ import numpy as np
 import torch
 
 from .propagate import (_INT32_MAX, _check_array, _check_step_loop,
-                        _flat_index, _quantize_step, _smooth_dir, _take)
+                        _flat_index, _index_bits, _quantize_step,
+                        _smooth_dir, _take)
 
 __all__ = ["propagate_micro_dir", "propagate_micro_dir_plain",
            "window_selfcheck"]
-
-
-def _index_bits(shape3) -> int:
-    """The kernel's index arithmetic for a volume of `shape3`: 32-bit when
-    it holds fewer than 2^31 voxels and each dimension is below 2^29 (the
-    kernel then clamps a voxel coordinate to +-2^30 and takes no window
-    offset of 2^29 or more, which keeps every window cell of a farther
-    coordinate outside the volume), else 64-bit."""
-    if int(np.prod([int(n) for n in shape3])) < 2 ** 31 \
-            and max(int(n) for n in shape3) < 2 ** 29:
-        return 32
-    return 64
 
 
 def propagate_micro_dir_plain(pos0, vec0, npts0, mask_flat, vec_first,

@@ -107,12 +107,12 @@ def stream_lcm(work, seed, lcms, wire):
                                work.ovec_flat, work.shape3)
         i = lo // cfg.chunk
         zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
-        fpts, fsav, fflag, nf, fq = propagate_lcm_dir(ckeys[2 * i], pos0, v0,
-                                                      zero, *args)
-        bpts, bsav, bflag, _, _ = propagate_lcm_dir(ckeys[2 * i + 1], pos0,
-                                                    -v0, nf, *args)
-        return (fpts, fsav.sum(dim=0, dtype=torch.int32),
-                bpts, bsav.sum(dim=0, dtype=torch.int32), fq, fflag, bflag)
+        fpts, _, fflag, nf, fq = propagate_lcm_dir(ckeys[2 * i], pos0, v0,
+                                                   zero, *args)
+        bpts, _, bflag, nb, _ = propagate_lcm_dir(ckeys[2 * i + 1], pos0,
+                                                  -v0, nf, *args)
+        # each direction's count: its npts less those it started from
+        return fpts, nf, bpts, nb - nf, fq, fflag, bflag
 
     return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ovecs[0]),
                   cfg.trk_sink, has_scalars=True, mode=mode, qscale=qscale)
@@ -228,10 +228,10 @@ def stream_micro(work, seed, wire):
         pos0, v0 = _seed_state(seeds_all[lo:hi], subs_all[lo:hi],
                                work.ovec_flat, work.shape3)
         zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
-        fpts, fsav, nf, fq = propagate_micro_dir(pos0, v0, zero, *args)
-        bpts, bsav, _, _ = propagate_micro_dir(pos0, -v0, nf, *args)
-        return (fpts, fsav.sum(dim=0, dtype=torch.int32),
-                bpts, bsav.sum(dim=0, dtype=torch.int32), fq)
+        fpts, _, nf, fq = propagate_micro_dir(pos0, v0, zero, *args)
+        bpts, _, nb, _ = propagate_micro_dir(pos0, -v0, nf, *args)
+        # each direction's count: its npts less those it started from
+        return fpts, nf, bpts, nb - nf, fq
 
     starts = list(range(0, len(seeds_all), chunk))
     return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ovecs[0]),

@@ -51,7 +51,7 @@ from ..core.handoff import DevicePeaks
 from ..core.mri import MRI
 from ..device import resolve, upload
 from ..io.trk import Tract, TrkSink
-from ..ops.kernels.propagate import _flat_index, propagate_dir
+from ..ops.kernels.propagate import _flat_index, propagate_pair
 from ..parallel.mesh import as_mesh, as_tensor, pad_to_multiple
 from ..utils.hostbuf import scratch
 from ..utils.prng import prng_key, uniform
@@ -163,23 +163,22 @@ def propagate_shards(parts, shape3, nsteps, step_size, cosang_thresh,
                      smooth_coeff, len_max, emit="points", qscale=254.0,
                      dmax=127):
     """`propagate_chunk` for the seed shards `parts` [(seeds, subs,
-    ovecs_flat)], each on its field's device: one `propagate_dir` call
-    per shard and direction.  On the card each is one kernel launch that
-    does not wait for the card, so the devices of a mesh work at once.
-    The backward direction starts from the forward counts, so both share
-    the reference's single length budget (reference: src/stream.jl:
-    648-686).  Returns one (fwd_out, fwd_n, bwd_out, bwd_n, anchor) per
-    shard."""
+    ovecs_flat)], each on its field's device: one `propagate_pair` call
+    per shard, both directions.  On the card each is one kernel launch
+    that does not wait for the card, so the devices of a mesh work at
+    once.  The backward direction starts from the forward counts, so both
+    share the reference's single length budget (reference:
+    src/stream.jl:648-686).  Each direction's count is its npts less the
+    npts it started from (a save adds one).  Returns one (fwd_out, fwd_n,
+    bwd_out, bwd_n, anchor) per shard."""
     args = (nsteps, shape3, step_size, cosang_thresh, smooth_coeff, len_max,
             emit, qscale, dmax)
     out = []
     for seeds, subs, ov in parts:
         p0, v0 = _seed_state(seeds, subs, ov, shape3)
         zero = torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device)
-        fo, fs, nf, fq = propagate_dir(p0, v0, zero, ov, *args)
-        bo, bs, _, _ = propagate_dir(p0, -v0, nf, ov, *args)
-        out.append((fo, fs.sum(dim=0, dtype=torch.int32),
-                    bo, bs.sum(dim=0, dtype=torch.int32), fq))
+        fo, _, nf, fq, bo, _, nb = propagate_pair(p0, v0, zero, ov, *args)
+        out.append((fo, nf, bo, nb - nf, fq))
     return out
 
 

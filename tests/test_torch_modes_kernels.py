@@ -648,9 +648,11 @@ def test_window_sums_order_on_card(cuda):
 @pytest.mark.cuda
 def test_lcm_arithmetic_on_card(cuda):
     """logf, the Gumbel transform of every uniform, the sum of ten, the
-    argmax and the uniforms of the LCM kernel are torch's on the card."""
+    argmax, the uniforms and the pruned draw of the LCM kernel are torch's
+    on the card, and no Gumbel term exceeds the draw's bound."""
     assert PL.lcm_selfcheck(1 << 20, device=cuda) == dict(
-        log=0, gumbel=0, sum10=0, argmax10=0, uniforms=0)
+        log=0, gumbel=0, sum10=0, argmax10=0, uniforms=0, draw=0,
+        gumbel_max=0)
 
 
 MICRO_CARD = {

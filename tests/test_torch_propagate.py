@@ -13,8 +13,9 @@ within 1e-4 voxel and the decoded delta chains within 2/qscale, the
 bounds of tests/test_torch_stream.py.
 
 The `cuda` tests hold the CUDA kernel to the plain version on the card,
-bit for bit on all four outputs, and `stream()` through the kernel to
-`stream()` through the plain loop, byte for byte in the .trk.
+bit for bit on all four outputs, and `stream()` through the kernel (its
+two-direction entry, `propagate_pair`) to `stream()` through the plain
+loop, byte for byte in the .trk.
 """
 
 import numpy as np
@@ -193,10 +194,12 @@ def test_stream_on_cpu_launches_no_kernel():
     from fibers_tpu_torch.utils.phantom import make_brain
     dwi, mask, _ = make_brain(shape=(12, 12, 8), ndir=34)
     gqi = tt.gqi_rec(dwi, mask, tt.sphere_642, device="cpu")
-    before = P.propagate_dir.launches
+    before = P.propagate_dir.launches, P.propagate_pair.launches
     tr = tt.stream(tt.peaks_to_ovecs(gqi, device=True).first(1), mask=mask,
                    nsub=2, f_thresh=0.0)
-    assert tr.n_count > 0 and P.propagate_dir.launches == before == 0
+    assert tr.n_count > 0
+    assert (P.propagate_dir.launches, P.propagate_pair.launches) == before \
+        == (0, 0)
 
 
 def _bad(case):
@@ -292,19 +295,19 @@ def test_kernel_equals_plain_on_card(cuda, S, wire, smooth):
 def test_stream_trk_through_kernel_equals_plain_on_card(cuda, wire, tmp_path,
                                                         monkeypatch):
     """`stream()` from a GQI fit's device peaks into a .trk: through the
-    kernel (two launches a chunk) and through the plain loop, the same
-    bytes."""
+    two-direction kernel (one launch a chunk) and through the plain loop,
+    the same bytes."""
     from fibers_tpu_torch.utils.phantom import make_brain
     dwi, mask, _ = make_brain(shape=(32, 32, 20), ndir=34)
     pk = tt.peaks_to_ovecs(tt.gqi_rec(dwi, mask, tt.sphere_642),
                            device=True).first(1)
     kw = dict(mask=mask, nsub=3, f_thresh=0.0, wire=wire, chunk=8192)
     kern, plain = tmp_path / "kernel.trk", tmp_path / "plain.trk"
-    before = P.propagate_dir.launches
+    before = P.propagate_pair.launches
     tr = tt.stream(pk, trk_sink=str(kern), **kw)
     nchunks = -(-3 * int((mask.vol > 0).sum()) // 8192)
-    assert P.propagate_dir.launches - before == 2 * nchunks
-    monkeypatch.setattr(stream_mod, "propagate_dir", P.propagate_dir_plain)
+    assert P.propagate_pair.launches - before == nchunks
+    monkeypatch.setattr(stream_mod, "propagate_pair", P.propagate_pair_plain)
     tt.stream(pk, trk_sink=str(plain), **kw)
     assert tr.n_count > 0
     assert kern.read_bytes() == plain.read_bytes()
@@ -312,8 +315,8 @@ def test_stream_trk_through_kernel_equals_plain_on_card(cuda, wire, tmp_path,
 
 @pytest.mark.cuda
 def test_sharded_stream_launches_per_shard_on_card(cuda):
-    """On a two-shard mesh of card 0 each chunk makes one launch per shard
-    and direction, and the lines equal the unsharded run's."""
+    """On a two-shard mesh of card 0 each chunk makes one launch per
+    shard, both directions, and the lines equal the unsharded run's."""
     from fibers_tpu_torch.parallel.mesh import Mesh
     from fibers_tpu_torch.utils.phantom import make_brain
     dwi, mask, _ = make_brain(shape=(24, 24, 16), ndir=34)
@@ -322,10 +325,10 @@ def test_sharded_stream_launches_per_shard_on_card(cuda):
     mesh = Mesh(np.array([cuda, cuda], dtype=object), ("data",))
     kw = dict(mask=mask, nsub=3, f_thresh=0.0, chunk=4096)
     one = tt.stream(pk, **kw)
-    before = P.propagate_dir.launches
+    before = P.propagate_pair.launches
     sh = tt.stream(pk, mesh=mesh, **kw)
     nchunks = -(-3 * int((mask.vol > 0).sum()) // 4096)
-    assert P.propagate_dir.launches - before == 4 * nchunks
+    assert P.propagate_pair.launches - before == 2 * nchunks
     assert sh.n_count == one.n_count > 0
     assert np.array_equal(sh.npts, one.npts)
     assert np.array_equal(sh.packed_xyz, one.packed_xyz)
