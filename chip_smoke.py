@@ -18,10 +18,15 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 - RUMBA-SD: the four TV kernels (all instances of one x-sweep) against
   their plain versions, bit for bit, at RUMBA's shapes, the TV
   experiment's and ragged ones, after the self-check of their branch-free
-  sqrt, 1/x and a/b against the IEEE intrinsics; config 4 (600
-  iterations at full width, its signal on the u12 wire) chained into ~1M
-  streams and a .trk; a
-  tv_bf16 run; the card's slice against the CPU's on the small config-4
+  sqrt, 1/x and a/b against the IEEE intrinsics; the two row kernels of
+  the iteration (`rumba_update`, `rumba_refit`) against their plain
+  versions at config 4's shapes, bit for bit but for the noise variance,
+  timed with their bounds, and one iteration split by operator
+  (`[rumba-step]`); config 4 (600 iterations at full width, its signal
+  on the u12 wire, each kernel's exact launch count) chained into ~1M
+  streams and a .trk; a tv_bf16 run; 50 iterations through the row
+  kernels against the same fit through their plain versions (swapped in
+  here); the card's slice against the CPU's on the small config-4
   phantom.
 - DSI (config 3 at full width, chained into ~1M streams), the structure
   tensor on config 4's volume and the CLI (`python -m fibers_tpu_torch
@@ -50,8 +55,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   of the same peaks, with each stage's time and the launches per
   propagation step of both point wires; the 600-iteration RUMBA fit's
   default u12 signal rows against the exact host signal, its signal
-  stage beside an f32 one, and its chain streamed on the i6 wire
-  against f32 points.
+  stage beside an f32 one (the raw rows normalised on the card, held to
+  the exact signal too), and its chain streamed on the i6 wire against
+  f32 points.
 - Tractography (`[propagate]` lines): the self-check of the propagation
   kernel's sum of three products against torch's on the card; one
   131,072-seed chunk of the main path's device peaks (1 vector a voxel)
@@ -88,6 +94,7 @@ the last line `{"ok": true, "device": {...}}`.
 
 import contextlib
 import filecmp
+import inspect
 import json
 import os
 import subprocess
@@ -121,6 +128,13 @@ KERNELS = [
     ("propagate_micro_dir", "fibers_tpu_torch/csrc/propagate_micro.cu",
      "fibers_tpu/tract/modes.py:301 _propagate_micro (lax.scan, XLA)",
      True),
+    ("rumba_update", "fibers_tpu_torch/csrc/rumba_step.cu",
+     "fibers_tpu/models/rumba.py:343 _rumba_step_core (XLA, the body of "
+     "_rumba_block's lax.fori_loop, :420): the fODF update", True),
+    ("rumba_refit", "fibers_tpu_torch/csrc/rumba_step.cu",
+     "fibers_tpu/models/rumba.py:343 _rumba_step_core (XLA, the body of "
+     "_rumba_block's lax.fori_loop, :420): the noise-variance refit and "
+     "the next Bessel ratio", True),
 ]
 # the GQI kernel's shapes: the main path's N, and a ragged N at maxdeg 6
 # and 7 (sphere, rows); the first is timed
@@ -136,6 +150,23 @@ TF32_FLOP_S = 495e12
 # 1/norm, 3 products) and the output (3 differences, 2 adds, product,
 # subtraction, abs, add, divide)
 TV_FLOPS = 14 + 10
+# floating-point operations of one element of RUMBA's row kernels
+# (csrc/rumba_step.cu), a divide as one: Perron's fraction is 15 (5
+# products, 6 sums, 4 divides); the refit takes it twice, with the ratio's
+# product and divide, the residual's 7 and the row sum's add, and x's
+# product; the first-iteration mode one fraction and x; the update an add,
+# a divide, two products and the max
+REFIT_FLOPS = 2 * 15 + 2 + 7 + 1 + 1
+FIRST_FLOPS = 15 + 1
+UPDATE_FLOPS = 5
+# a fit through the kernels against the same fit through their plain
+# versions (tests/test_torch_rumba.py:FIT), and the noise variance of one
+# refit, which the kernel sums in another order (rtol 1e-6, ~8 ulps)
+FIT = dict(rtol=1e-4, atol=1e-7)
+SIG2_RTOL = 1e-6
+# GFA is a std over an rms of near-uniform fODF rows (0.05-0.06 on config
+# 4), so a relative fODF change moves it ~20x as much: FIT's rtol / 0.05
+GFA_FIT = dict(rtol=2e-3, atol=1e-6)
 # shapes that cut the TV sweep kernels' 8 x 8 (y, z) tiles and 32-wide
 # component chunks raggedly (tests/test_torch_tv.py:RAGGED); the last two
 # (X = 2; X = 4 with Z < 8) are all prologue and epilogue of the two-slice
@@ -176,12 +207,15 @@ def _wrappers():
     from fibers_tpu_torch.ops.kernels.propagate_lcm import propagate_lcm_dir
     from fibers_tpu_torch.ops.kernels.propagate_micro import \
         propagate_micro_dir
+    from fibers_tpu_torch.ops.kernels.rumba_step import (rumba_refit,
+                                                         rumba_update)
     return dict(gqi_fused=gqi_fused, tv_fused=tv_fused,
                 tv_multiplier=tv_multiplier, tv_dimsem=tv_dimsem,
                 tv_2slice=tv_2slice, propagate_pair=propagate_pair,
                 propagate_dir=propagate_dir,
                 propagate_lcm_dir=propagate_lcm_dir,
-                propagate_micro_dir=propagate_micro_dir)
+                propagate_micro_dir=propagate_micro_dir,
+                rumba_update=rumba_update, rumba_refit=rumba_refit)
 
 
 def reset_counts():
@@ -1525,11 +1559,200 @@ def phase_tv(mask):
     return records
 
 
+def turns(fn, plain, reps):
+    """fn() against plain() by CUDA events in turns plain / kernel /
+    kernel / plain, `reps` calls each: (kernel ms, plain ms, the turns)."""
+    import torch
+    fn()
+    plain()
+    torch.cuda.synchronize()
+    t = [cuda_ms(f, reps) for f in (plain, fn, fn, plain)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def _bits(a, b):
+    """Bit for bit, NaN where NaN."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_rumba_step(dwi, mask, warm=5, reps=10):
+    """[rumba-step] RUMBA's two row kernels against their plain versions at
+    config 4's shapes (715,200 rows, 253 signal and 364 fODF columns), on
+    the fit's state after `warm` iterations: bit for bit but for the
+    noise variance (rtol SIG2_RTOL), timed in turns with CUDA events
+    beside a copy of the same bytes and the bound.  Then one iteration
+    split by operator (the three products, the TV kernel, the two row
+    kernels, the rest) and the device kernels of a profiled iteration.
+    Returns the two kernels' records."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fibers_tpu_torch.models import rumba as rm
+    from fibers_tpu_torch.ops.kernels.rumba_step import (rumba_refit,
+                                                         rumba_refit_plain,
+                                                         rumba_update,
+                                                         rumba_update_plain)
+    from fibers_tpu_torch.ops.kernels.tv_fused import build_tables, tv_fused
+    from fibers_tpu_torch.ops.masked import mask_indices
+
+    t0 = time.time()
+    cuda = torch.device("cuda")
+    # the fit's initial state, as rumba_rec builds it
+    idx = mask_indices(mask.vol)
+    kernel, ib0 = rm._build_kernel(
+        np.asarray(dwi.bval, np.float32), np.asarray(dwi.bvec, np.float32),
+        tt.sphere_724, 1.7e-3, 0.2e-3, 3.0e-3, 0.8e-4)
+    vol = np.asarray(dwi.vol)
+    signal = rm._signal_f32(vol.reshape(-1, vol.shape[3]), idx, ib0, cuda)
+    n, ndir = signal.shape
+    ncomp = kernel.shape[1]
+    shape3, nxyz, idx_tv, _ = rm._tv_bbox(idx, mask.vol.shape[:3])
+    k = torch.from_numpy(kernel).to(cuda)
+    fodf0 = np.full(ncomp, 1.0 / ncomp, np.float32)
+    lam0 = (1.0 / 15) ** 2
+    fodf = torch.from_numpy(fodf0).to(cuda).expand(n, ncomp).clone()
+    dodf = torch.from_numpy(kernel @ fodf0).to(cuda).expand(n, ndir).clone()
+    sig2 = torch.full((n, 1), lam0, device=cuda)
+    st = (fodf, dodf, (signal * dodf) / sig2, sig2,
+          torch.full((nxyz,), lam0, device=cuda))
+    idx_d = torch.from_numpy(idx_tv).to(cuda)
+    tabs = build_tables(idx_tv, shape3, cuda)
+    tv_buf = torch.ones((n, ncomp), device=cuda)
+
+    def step(st, x):
+        return rm._rumba_step(*st, signal, k, idx_d, 1, 1, True, shape3,
+                              "high", False, tabs=tabs, tv_buf=tv_buf, x=x)
+
+    x = None
+    for _ in range(warm):
+        out = step(st, x)
+        st, x = out[:5], out[6]
+    del out
+    fodf, dodf, dodf_sig, sig2, lam = st
+    lam3 = lam.reshape(shape3)
+    num, den = rm._mm(x, k, "high"), rm._mm(dodf, k, "high")
+    tv = tv_fused(fodf, lam3, tabs, tv_buf)
+    records = {}
+    none = "none: no PyTorch call computes it"
+
+    # rumba_update: fodf, num, den, tv in, the new fODF out
+    new = rumba_update(fodf, num, den, tv)
+    torch.cuda.synchronize()
+    ref = rumba_update_plain(fodf, num, den, tv)
+    err = float((new - ref).abs().max())
+    check(_bits(new, ref), f"rumba_update differs from its plain version "
+          f"by {err}")
+    del ref
+    nbytes = 5 * fodf.nbytes
+    ms, plain_ms, t = turns(lambda: rumba_update(fodf, num, den, tv),
+                            lambda: rumba_update_plain(fodf, num, den, tv),
+                            reps)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               copy_ms=copy_ms(nbytes, reps), library_call=none,
+               shape=[n, ncomp],
+               **bound_ms(nbytes, UPDATE_FLOPS * fodf.numel()))
+    records["rumba_update"] = rec
+    log(f"[rumba-step] rumba_update [{n}, {ncomp}]: bit-equal to plain; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (turns "
+        f"{', '.join(f'{v:.3f}' for v in t)}); copy of its "
+        f"{nbytes / 1e9:.3f} GB {rec['copy_ms']:.3f} ms; bound "
+        f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} "
+        f"({100 * rec['bound_ms'] / ms:.1f}%)")
+
+    # rumba_refit: signal, dodf_sig, dodf, sig2 in; dodf_sig, x, sig2 out
+    dodf_new = rm._mm(new, k.T, "high")
+    args = (signal, dodf_sig, 1, dodf_new, sig2)
+    got = rumba_refit(*args)
+    torch.cuda.synchronize()
+    ref = rumba_refit_plain(*args)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    ulps = int((got[1].view(torch.int32) - ref[1].view(torch.int32)).abs()
+               .max())
+    check(_bits(got[0], ref[0]) and _bits(got[2], ref[2]),
+          "rumba_refit's dodf_sig or x differs from its plain version")
+    torch.testing.assert_close(got[1], ref[1], rtol=SIG2_RTOL, atol=0,
+                               equal_nan=True)
+    first = rumba_refit(signal, dodf_sig, 1)[2]
+    check(_bits(first, rumba_refit_plain(signal, dodf_sig, 1)[2]),
+          "rumba_refit's first-iteration x differs from its plain version")
+    del got, ref, first
+    nbytes = 5 * signal.nbytes + 2 * sig2.nbytes
+    ms, plain_ms, t = turns(lambda: rumba_refit(*args),
+                            lambda: rumba_refit_plain(*args), reps)
+    nb_first = 3 * signal.nbytes
+    f_ms, f_plain, _ = turns(
+        lambda: rumba_refit(signal, dodf_sig, 1),
+        lambda: rumba_refit_plain(signal, dodf_sig, 1), reps)
+    rec = dict(max_abs_err=err, sig2_max_ulps=ulps, ms=ms,
+               plain_ms=plain_ms, copy_ms=copy_ms(nbytes, reps),
+               library_call=none, shape=[n, ndir],
+               **bound_ms(nbytes, REFIT_FLOPS * signal.numel()))
+    rec["first_iteration"] = dict(
+        ms=f_ms, plain_ms=f_plain,
+        **bound_ms(nb_first, FIRST_FLOPS * signal.numel()))
+    records["rumba_refit"] = rec
+    log(f"[rumba-step] rumba_refit [{n}, {ndir}]: dodf_sig and x bit-equal "
+        f"to plain, sig2 within {ulps} ulps (max|d| {err:.3g}); kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (turns "
+        f"{', '.join(f'{v:.3f}' for v in t)}); copy of its "
+        f"{nbytes / 1e9:.3f} GB {rec['copy_ms']:.3f} ms; bound "
+        f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} "
+        f"({100 * rec['bound_ms'] / ms:.1f}%); first-iteration mode "
+        f"{f_ms:.3f} ms, plain {f_plain:.3f} ms, bound "
+        f"{rec['first_iteration']['bound_ms']:.3f} ms")
+
+    # one iteration (on the same state each time; the step overwrites x
+    # with the next, which changes no work) by CUDA events, whole and by
+    # operator, each part alone (the rest: the iteration less the parts);
+    # then the device kernels of `prof_iters` profiled iterations
+    parts = dict(
+        products=lambda: (rm._mm(x, k, "high"), rm._mm(dodf, k, "high"),
+                          rm._mm(new, k.T, "high")),
+        tv_fused=lambda: tv_fused(fodf, lam3, tabs, tv_buf),
+        rumba_update=lambda: rumba_update(fodf, num, den, tv),
+        rumba_refit=lambda: rumba_refit(*args))
+    split = {name: cuda_ms(fn, reps) for name, fn in parts.items()}
+    it_ms = cuda_ms(lambda: step(st, x), reps)
+    split["rest"] = it_ms - sum(split.values())
+    prof_iters = 3
+    keep = ({"acc_events": True} if "acc_events" in
+            inspect.signature(profile).parameters else {})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **keep) as prof:
+        for _ in range(prof_iters):
+            step(st, x)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / prof_iters
+    log(f"[rumba-step] one iteration {it_ms:.3f} ms by CUDA events: "
+        + ", ".join(f"{g} {v:.3f}" for g, v in split.items())
+        + f" ms; a profiled iteration's device time {dev_ms:.3f} ms (idle "
+        f"{100 * (1 - dev_ms / it_ms):.1f}% of the unprofiled iteration) "
+        f"in {sum(e.count for e in events) / prof_iters:g} device events: "
+        + "; ".join(f"{e.key[:48]} x{e.count / prof_iters:g} "
+                    f"{e.self_device_time_total / 1e3 / e.count:.3f} ms"
+                    for e in events))
+    records["rumba_refit"]["iteration_split_ms"] = dict(
+        split, iteration=it_ms, profiled_device=dev_ms)
+    log(f"[rumba-step] phase {time.time() - t0:.1f} s")
+    del st, x, num, den, tv, new, dodf_new, args, signal, tv_buf
+    torch.cuda.empty_cache()
+    return records
+
+
 def phase_rumba(dwi, mask, ax, mesh):
     """Config 4 at full width on the card: RUMBA-SD, 600 iterations,
     chained into ~1M streams written to a .trk (i6, then f32 through the
     kernel beside the plain loop, and its `[propagate]` chunk); then a
-    tv_bf16 run and the mesh run (`phase_mesh_rumba`).  The warm run and
+    tv_bf16 run, the f32 run it is held to against the same fit through
+    the row kernels' plain versions (`plain_fit`), and the mesh run
+    (`phase_mesh_rumba`).  Each run's launches are exact
+    (`rumba_launches`).  The warm run and
     the 50- and 20-iteration runs take a prepared batch, which skips the
     host signal
     route the counted run times."""
@@ -1565,11 +1788,7 @@ def phase_rumba(dwi, mask, ax, mesh):
         + f", total {t_fit:.3f} s; {1e3 * stages['iterate'] / niter:.3f} ms"
         f" per iteration; peak device memory {peak_mem:.1f} GiB; launches "
         f"{counts}; snr_mean={rum.snr_mean:.3f} snr_std={rum.snr_std:.3f}")
-    check(counts["tv_fused"] == niter,
-          f"tv_fused launched {counts['tv_fused']} times in {niter} "
-          "iterations")
-    check(sum(counts.values()) == niter,
-          f"the RUMBA path launched other kernels: {counts}")
+    rumba_launches(counts, "tv_fused", niter, 1, "the 600-iteration fit")
 
     sums = device_values(rum.fodf)[:nmask].sum(dim=1)
     dsum = float((sums - 1.0).abs().max())
@@ -1664,41 +1883,115 @@ def phase_rumba(dwi, mask, ax, mesh):
         f"{counts_b16}); f32 {nb} iterations {t_f32:.3f} s, "
         f"{1e3 * st_f32['iterate'] / nb:.3f} ms per iteration; max |dfODF| "
         f"= {dmax:.3g}")
-    check(counts_b16["tv_multiplier"] == nb and counts_b16["tv_fused"] == 0,
-          f"the tv_bf16 run launched {counts_b16}")
+    rumba_launches(counts_b16, "tv_multiplier", nb, 1, "the tv_bf16 run")
     torch.testing.assert_close(fb, ff, rtol=0.05, atol=2e-3)
-    del b16, f32, fb, ff
+    del b16, fb
+    plain_fit(dwi, mask, batch, f32, st_f32, nb, nmask)
+    del f32, ff
     counts_mesh = phase_mesh_rumba(dwi, mask, mesh, batch, nmask)
     return counts, counts_b16, counts_mesh, chain_counts, prop
 
 
+def rumba_launches(counts, tv, niter, shards, what, tv_per_iter=None):
+    """A RUMBA fit of `niter` iterations over `shards` row shards launched
+    its TV kernel `tv` (`tv_per_iter` times an iteration, else once a
+    shard), `rumba_update` once a shard and iteration, `rumba_refit` once
+    a shard and iteration plus each shard's first-iteration launch, and
+    nothing else: no torch elementwise update is left in the loop."""
+    want = {tv: niter * (tv_per_iter or shards),
+            "rumba_update": niter * shards,
+            "rumba_refit": (niter + 1) * shards}
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{what} launched {got}, not {want}")
+
+
+@contextlib.contextmanager
+def plain_rumba_kernels():
+    """rumba_rec with its two row kernels swapped for their plain
+    versions while the block runs (the fit's own module names; the
+    package has no switch)."""
+    from fibers_tpu_torch.models import rumba
+    from fibers_tpu_torch.ops.kernels import rumba_step
+    real = rumba.rumba_update, rumba.rumba_refit
+    rumba.rumba_update = rumba_step.rumba_update_plain
+    rumba.rumba_refit = rumba_step.rumba_refit_plain
+    try:
+        yield
+    finally:
+        rumba.rumba_update, rumba.rumba_refit = real
+
+
+def plain_fit(dwi, mask, batch, fit, st_fit, niter, nmask):
+    """[rumba] The `niter`-iteration config-4 fit `fit` (through the
+    kernels, stage times `st_fit`) against the same fit with the row
+    kernels swapped for their plain versions: fODF within FIT, GFA within
+    GFA_FIT, snr_mean within 1e-3; the plain fit launches tv_fused
+    alone."""
+    import torch
+    import fibers_tpu_torch as tt
+    reset_counts()
+    st = {}
+    with plain_rumba_kernels():
+        ref = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter, timings=st,
+                           batch=batch)
+    counts = {k: v for k, v in read_counts().items() if v}
+    fk, fp = device_values(fit.fodf)[:nmask], device_values(ref.fodf)[:nmask]
+    gk, gp = device_values(fit.gfa)[:nmask], device_values(ref.gfa)[:nmask]
+    dsnr = abs(fit.snr_mean - ref.snr_mean)
+    log(f"[rumba] {niter} iterations through the row kernels "
+        f"{1e3 * st_fit['iterate'] / niter:.3f} ms per iteration against "
+        f"their plain versions {1e3 * st['iterate'] / niter:.3f} ms "
+        f"(launches {counts}); max|dfODF|={float((fk - fp).abs().max()):.3g}"
+        f" max|dGFA|={float((gk - gp).abs().max()):.3g} "
+        f"|dsnr_mean|={dsnr:.3g}")
+    check(counts == {"tv_fused": niter}, f"the plain fit launched {counts}")
+    torch.testing.assert_close(fk, fp, **FIT)
+    torch.testing.assert_close(gk, gp, **GFA_FIT)
+    check(dsnr <= 1e-3, f"snr_mean differs by {dsnr}")
+
+
 class signal_spy:
     """Keeps the signal rows that `rumba_rec` builds through its upload
-    wire (`models/rumba.py:_signal_wire`) while the block runs."""
+    wire (`models/rumba.py:_signal_wire`, or `_signal_f32` with `name`)
+    while the block runs; with `refuse`, a call of `refuse` (a function of
+    the same module) fails the run."""
+
+    def __init__(self, name="_signal_wire", refuse=None):
+        self.name, self.refuse = name, refuse
 
     def __enter__(self):
         from fibers_tpu_torch.models import rumba
-        self._real, self.rows = rumba._signal_wire, None
+        self._real, self.rows = getattr(rumba, self.name), None
+        self._refused = getattr(rumba, self.refuse) if self.refuse else None
 
         def spy(*args, **kwargs):
             self.rows = self._real(*args, **kwargs)
             return self.rows
 
-        rumba._signal_wire = spy
+        def refused(*args, **kwargs):
+            raise RuntimeError(f"chip_smoke: rumba_rec called {self.refuse}")
+
+        setattr(rumba, self.name, spy)
+        if self.refuse:
+            setattr(rumba, self.refuse, refused)
         return self
 
     def __exit__(self, *exc):
         from fibers_tpu_torch.models import rumba
-        rumba._signal_wire = self._real
+        setattr(rumba, self.name, self._real)
+        if self.refuse:
+            setattr(rumba, self.refuse, self._refused)
 
 
 def phase_wire_rumba(dwi, mask, spy, stages):
     """[wire] The signal rows of the 600-iteration fit, which took the
     default u12 wire (`spy`), against the exact host signal
     (`_signal_host`) on every 16th row: within half a grid step, 0.5 /
-    4095, plus 1e-6 for the decode's float32 rounding.  Then the signal
-    stage of a one-iteration fit with signal_wire="f32", for its time
-    beside the u12 stage's (`stages`)."""
+    4095, plus 1e-6 for the decode's float32 rounding.  Then a
+    one-iteration fit with signal_wire="f32", for its signal stage beside
+    the u12 stage's (`stages`): its rows, normalised on the card
+    (`_signal_f32`; `_signal_host` must not run), against the exact
+    signal within 1e-6 on the same rows, and its launches."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -1716,14 +2009,25 @@ def phase_wire_rumba(dwi, mask, spy, stages):
     spy.rows = None
     dsig = float(np.abs(got - exact).max())
     st_f = {}
-    tt.rumba_rec(dwi, mask, tt.sphere_724, niter=1, signal_wire="f32",
-                 timings=st_f)
+    reset_counts()
+    with signal_spy("_signal_f32", refuse="_signal_host") as f32:
+        tt.rumba_rec(dwi, mask, tt.sphere_724, niter=1, signal_wire="f32",
+                     timings=st_f)
+    counts = read_counts()
+    check(f32.rows is not None, "the f32 fit did not take the card's route")
+    got_f = f32.rows[torch.from_numpy(rows).to(f32.rows.device)].cpu().numpy()
+    f32.rows = None
+    dsig_f = float(np.abs(got_f - exact).max())
     log(f"[wire] RUMBA signal u12 {stages['signal']:.3f} s against f32 "
-        f"{st_f['signal']:.3f} s (a one-iteration fit); u12 rows against "
-        f"the exact signal on {len(rows)} rows: max|d|={dsig:.3g} (bound "
-        f"0.5/4095 + 1e-6 = {0.5 / 4095 + 1e-6:.4g})")
-    check(got.shape == exact.shape, "u12 signal rows of another shape")
+        f"{st_f['signal']:.3f} s (a one-iteration fit; f32 normalised on "
+        f"the card); rows against the exact signal on {len(rows)} rows: u12"
+        f" max|d|={dsig:.3g} (bound 0.5/4095 + 1e-6 = "
+        f"{0.5 / 4095 + 1e-6:.4g}), f32 max|d|={dsig_f:.3g} (bound 1e-6)")
+    check(got.shape == exact.shape == got_f.shape,
+          "signal rows of another shape")
     check(dsig <= 0.5 / 4095 + 1e-6, f"u12 signal rows differ by {dsig}")
+    check(dsig_f <= 1e-6, f"f32 signal rows differ by {dsig_f}")
+    rumba_launches(counts, "tv_fused", 1, 1, "the one-iteration f32 fit")
 
 
 def phase_mesh_rumba(dwi, mask, mesh, batch, nmask, niter=20):
@@ -1763,10 +2067,8 @@ def phase_mesh_rumba(dwi, mask, mesh, batch, nmask, niter=20):
         f" ms per iteration; launches {counts}; max|dfODF|={dmax:.3g} "
         f"max|dGFA|={float((g_m - g_r).abs().max()):.3g} "
         f"|dsnr_mean|={dsnr:.3g}")
-    check(counts["tv_multiplier"] == niter * mesh.size
-          and sum(counts.values()) == counts["tv_multiplier"],
-          f"the mesh RUMBA launched {counts}, not tv_multiplier "
-          f"{niter} x {mesh.size}")
+    rumba_launches(counts, "tv_multiplier", niter, mesh.ndata,
+                   "the mesh RUMBA", tv_per_iter=mesh.size)
     torch.testing.assert_close(f_m, f_r, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(g_m, g_r, rtol=1e-4, atol=1e-6)
     check(dsnr <= 1e-2, f"snr_mean differs by {dsnr}")
@@ -2719,6 +3021,7 @@ def main():
     log(f"[rumba] set-up: phantom {dwi.vol.shape} built in "
         f"{time.time() - t1:.1f} s")
     records.update(phase_tv(mask))
+    records.update(phase_rumba_step(dwi, mask))
     counts, counts_b16, counts_mesh, chain, prop_r = phase_rumba(
         dwi, mask, ax, mesh)
     stream_launches["rumba_chain_i6"] = chain["propagate_pair"]
@@ -2727,7 +3030,8 @@ def main():
     wire_launches["rumba_u12"] = counts
     mean_dwi = dwi.vol.mean(axis=3)
     del dwi, mask, ax
-    launches["tv_fused"] = counts["tv_fused"]
+    for name in ("tv_fused", "rumba_update", "rumba_refit"):
+        launches[name] = counts[name]
     launches["tv_multiplier"] = counts_b16["tv_multiplier"]
     phase_rumba_small()
 

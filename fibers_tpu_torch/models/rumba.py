@@ -13,8 +13,13 @@ The TV term runs on the mask's bounding box plus a one-voxel halo.  With
 `tv_bf16=False` (the default) it is one hand-written kernel over the fODF
 row table (ops/kernels/tv_fused.py); with `tv_bf16=True` the rows are
 embedded into a dense bf16 stack, the dense stencil kernel runs on it
-(ops/kernels/tv_stencil.py), and the multiplier is gathered back.  On a
-CPU batch both run their plain PyTorch versions.
+(ops/kernels/tv_stencil.py), and the multiplier is gathered back.  The
+row passes around the products are two hand-written kernels
+(ops/kernels/rumba_step.py): `rumba_update`, the fODF update, and
+`rumba_refit`, the noise-variance refit with the next iteration's Bessel
+ratio and numerator operand, so an iteration is three products, the TV
+kernel and two row passes (the reference's `_rumba_block` program).  On
+a CPU batch all of them run their plain PyTorch versions.
 
 Canales-Rodriguez et al. (2015), PLoS ONE 10(10):e0138910.
 """
@@ -31,14 +36,15 @@ import numpy as np
 import torch
 
 from .. import native
-from ..core.batch import (_quantize_pack_u12, decoder, place_rows,
-                          u12_row_bytes, wire_dtypes)
+from ..core.batch import (_gather_rows, _quantize_pack_u12, decoder,
+                          place_rows, u12_row_bytes, wire_dtypes)
 from ..core.handoff import DevicePeaks, split_unit_amp
 from ..core.lazy import LazyVolume
 from ..core.mri import MRI
 from ..core.odf import ODF
 from ..device import resolve, upload
 from ..io.dispatch import mri_write_struct
+from ..ops.kernels.rumba_step import besseli_ratio, rumba_refit, rumba_update
 from ..ops.kernels.tv_fused import build_tables, embed_index, tv_fused
 from ..ops.kernels.tv_stencil import tv_multiplier
 from ..ops.masked import mask_indices
@@ -93,18 +99,6 @@ def tensor_model(phi, theta, lam, b, g, s0=1.0):
     d = r @ np.diag(lam) @ r.T
     quad = np.einsum("vi,ij,vj->v", g, d, g)
     return s0 * np.exp(-np.asarray(b, np.float64) * quad)
-
-
-def besseli_ratio(nu, z):
-    """I_nu(z) / I_{nu-1}(z) by Perron's continued fraction; z a number,
-    numpy array or tensor.  (reference: src/rusd.jl:170-177)"""
-    return z / ((2 * nu + z)
-                - ((2 * nu + 1) * z
-                   / (2 * z + (2 * nu + 1)
-                      - ((2 * nu + 3) * z
-                         / ((2 * nu + 2) + 2 * z
-                            - ((2 * nu + 5) * z
-                               / ((2 * nu + 3) + 2 * z)))))))
 
 
 def _build_kernel(bval, bvec, odf_dirs, lam_para, lam_perp, lam_csf, lam_gm):
@@ -200,30 +194,37 @@ def _mm(a, b, precision):
     return torch.matmul(a, b)
 
 
-def _rl(dodf_sig, dodf, signal, kernel, n_order, precision):
-    """The Bessel ratio and the Richardson-Lucy ratio of one iteration."""
-    iratio = besseli_ratio(n_order, dodf_sig)
-    rl_num = _mm(signal * iratio, kernel, precision)
-    rl_den = _mm(dodf, kernel, precision) + 1e-7
-    return iratio, rl_num / rl_den
+def _update_rows(fodf, x, dodf, tv, kernel, precision):
+    """The Richardson-Lucy update of the fODF rows: the two products, then
+    `rumba_update` written over the numerator's buffer.  `x` is
+    signal * besseli_ratio(n_order, dodf_sig) (`rumba_refit`), `tv` the
+    multiplier rows or None."""
+    num = _mm(x, kernel, precision)
+    den = _mm(dodf, kernel, precision)
+    return rumba_update(fodf, num, den, tv, out=num)
 
 
-def _refit(fodf, signal, sig2, iratio, kernel, n_order, precision):
-    """dODF, its signal ratio and the noise variance of the new fODF
-    (reference: src/rusd.jl:305-323)."""
+def _refit_rows(fodf, signal, dodf_sig, sig2, kernel, n_order, precision,
+                x):
+    """dODF of the new fODF, then `rumba_refit`: its signal ratio, the
+    noise variance (reference: src/rusd.jl:305-323) and the next
+    iteration's x, written over this iteration's `x`.  Returns (dodf,
+    dodf_sig, sig2, x)."""
     dodf = _mm(fodf, kernel.T, precision)
-    dodf_sig = (signal * dodf) / sig2
-    resid = ((signal ** 2 + dodf ** 2) / 2
-             - (sig2 * dodf_sig) * iratio)
-    ndir = signal.shape[1]
-    sig2 = resid.sum(dim=1, keepdim=True) / (n_order * ndir)
-    sig2 = torch.clamp(sig2, (1.0 / 80) ** 2, (1.0 / 8) ** 2)
-    return dodf, dodf_sig, sig2
+    return (dodf,) + rumba_refit(signal, dodf_sig, n_order, dodf, sig2,
+                                 out=x)
+
+
+def _first_x(signal, dodf_sig, n_order):
+    """x of a first iteration (a fresh start or a resumed checkpoint):
+    `rumba_refit`'s first-iteration mode."""
+    return rumba_refit(signal, dodf_sig, n_order)[2]
 
 
 def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
                 idx_mask, n_order, ipat_factor, use_tv, shape3,
-                precision="high", tv_bf16=False, tabs=None, tv_buf=None):
+                precision="high", tv_bf16=False, tabs=None, tv_buf=None,
+                x=None):
     """One RUMBA-SD iteration over the voxel batch.
     (reference: src/rusd.jl:266-339)
 
@@ -232,23 +233,26 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
     [ndir, ncomp], idx_mask the crop cells of the first len(idx_mask)
     rows (later rows are padding).  The TV tables `tabs`
     (tv_fused.build_tables) and the multiplier buffer `tv_buf` are built
-    here when not given.
-    Returns (fodf, dodf, dodf_sig, sig2, lam_flat, snr)."""
+    here when not given.  `x` [N, ndir] is the numerator operand the
+    previous iteration returned, which this one overwrites with the next
+    (None: computed from dodf_sig).  The other arguments are left as they
+    are.
+    Returns (fodf, dodf, dodf_sig, sig2, lam_flat, snr, x), the last the
+    next iteration's x."""
     nmask = idx_mask.shape[0]
-    iratio, rl = _rl(dodf_sig, dodf, signal, kernel, n_order, precision)
+    if x is None:
+        x = _first_x(signal, dodf_sig, n_order)
 
+    tv = None
     if use_tv:
         if tv_buf is None:
             tv_buf = torch.ones_like(fodf)
         if tabs is None:
             tabs = build_tables(idx_mask.cpu().numpy(), shape3, fodf.device)
         tv = _tv_term(fodf, lam_flat.reshape(shape3), tabs, tv_bf16, tv_buf)
-        fodf = torch.clamp_min(fodf * rl * tv, 0.0)
-    else:
-        fodf = torch.clamp_min(fodf * rl, 0.0)
-
-    dodf, dodf_sig, sig2 = _refit(fodf, signal, sig2, iratio, kernel,
-                                  n_order, precision)
+    fodf = _update_rows(fodf, x, dodf, tv, kernel, precision)
+    dodf, dodf_sig, sig2, x = _refit_rows(fodf, signal, dodf_sig, sig2,
+                                          kernel, n_order, precision, x)
 
     # Lambda update (reference: src/rusd.jl:326-339), over the real rows
     if use_tv:
@@ -260,7 +264,7 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
                 (idx_mask,), sig2[:nmask, 0])
 
     snr = 1.0 / torch.sqrt(sig2)
-    return fodf, dodf, dodf_sig, sig2, lam_flat, snr
+    return fodf, dodf, dodf_sig, sig2, lam_flat, snr, x
 
 
 def mesh_tv_width(ncomp: int, ndev: int) -> int:
@@ -322,26 +326,28 @@ class _MeshTV:
 
 def _rumba_step_sharded(fodf, dodf, dodf_sig, sig2, lam, signal, kernel,
                         idx_mask, n_order, ipat_factor, use_tv, tv,
-                        precision):
+                        precision, x=None):
     """`_rumba_step` over ShardedRows state: the row-wise work once per
     shard (`kernel` and `idx_mask` {device: tensor}), the TV multiplier
     resharded over components (`tv`, a `_MeshTV`), and lambda from the
     real rows of every shard.  `lam` is {device: [prod(tv.shape3)]} over
-    the mesh's devices."""
+    the mesh's devices.  `x` and the result as `_rumba_step`'s."""
     mesh = fodf.mesh
     nmask = next(iter(idx_mask.values())).shape[0]
-    iratio, rl = map_shards(
-        lambda ds, d, s, k: _rl(ds, d, s, k, n_order, precision),
-        dodf_sig, dodf, signal, kernel)
+    if x is None:
+        x = map_shards(lambda s, ds: _first_x(s, ds, n_order), signal,
+                       dodf_sig)
+    t = None
     if use_tv:
-        lam3 = {d: v.reshape(tv.shape3) for d, v in lam.items()}
-        fodf = map_shards(lambda f, r, t: torch.clamp_min(f * r * t, 0.0),
-                          fodf, rl, tv(fodf, lam3))
-    else:
-        fodf = map_shards(lambda f, r: torch.clamp_min(f * r, 0.0), fodf, rl)
-    dodf, dodf_sig, sig2 = map_shards(
-        lambda f, s, s2, ir, k: _refit(f, s, s2, ir, k, n_order, precision),
-        fodf, signal, sig2, iratio, kernel)
+        t = tv(fodf, {d: v.reshape(tv.shape3) for d, v in lam.items()})
+    fodf = map_shards(
+        lambda f, x_, d, t_, k: _update_rows(f, x_, d, t_, k, precision),
+        fodf, x, dodf, t, kernel)
+    del t
+    dodf, dodf_sig, sig2, x = map_shards(
+        lambda f, s, ds, s2, k, x_: _refit_rows(f, s, ds, s2, k, n_order,
+                                                precision, x_),
+        fodf, signal, dodf_sig, sig2, kernel, x)
     if use_tv:
         real = sig2[:nmask]
         if ipat_factor == 1:
@@ -355,7 +361,7 @@ def _rumba_step_sharded(fodf, dodf, dodf_sig, sig2, lam, signal, kernel,
                 (idx_mask[d0],), gather_rows(real, d0)[:, 0])
             lam = {d: _move(lam0, d) for d in lam}
     snr = sig2.map(lambda s: 1.0 / torch.sqrt(s))
-    return fodf, dodf, dodf_sig, sig2, lam, snr
+    return fodf, dodf, dodf_sig, sig2, lam, snr, x
 
 
 def _snr_stats(sig2, nmask):
@@ -480,6 +486,42 @@ def _signal_host(flat, idx, ib0):
     np.clip(dwis, 0.0, 1.0, out=dwis)
     return np.concatenate(
         [(b0_mean > 0).astype(np.float32)[:, None], dwis], axis=1)
+
+
+def _signal_rows(rows, ib0_idx, idwi_idx):
+    """`_signal_host`'s normalisation of raw [N, nvol] rows, on their
+    device: b0 mean of the clamped b0 columns, the clamped DWI columns
+    over it with every non-finite quotient set to 0 (a NaN or inf sample,
+    a zero or NaN b0), clipped to [0, 1], the b0 flag first.  Zero rows
+    give zero rows."""
+    b0 = rows.index_select(1, ib0_idx).clamp_min(0).mean(dim=1)
+    dwis = rows.index_select(1, idwi_idx).clamp_min(0) / b0[:, None]
+    dwis = torch.where(torch.isfinite(dwis), dwis,
+                       rows.new_zeros(())).clamp_(0.0, 1.0)
+    return torch.cat([(b0 > 0).to(torch.float32)[:, None], dwis], dim=1)
+
+
+def _signal_f32(flat, idx, ib0, device, mesh=None):
+    """`_signal_host`'s matrix built on the card: the raw masked rows
+    gathered into a pinned buffer (the native OpenMP gather when the
+    volume is C-contiguous float32), copied to `device` once, or over
+    `mesh` once per shard with zero pad rows, and normalised there by
+    `_signal_rows`.  The b0 mean is summed in another order than numpy's,
+    so rows agree with `_signal_host`'s to float rounding."""
+    nmask, nvol = len(idx), flat.shape[1]
+    n = nmask if mesh is None else pad_to_multiple(nmask, mesh.ndata)
+    devs = mesh.data_devices if mesh is not None else [torch.device(device)]
+    host = torch.empty((n, nvol), dtype=torch.float32,
+                       pin_memory=any(d.type == "cuda" for d in devs))
+    h = host.numpy()
+    _gather_rows(flat, idx, None, 0.0, out=h[:nmask])
+    h[nmask:] = 0
+    ib0_i, idwi_i = np.flatnonzero(ib0), np.flatnonzero(~ib0)
+
+    def normalise(rows):
+        return _signal_rows(rows, torch.from_numpy(ib0_i).to(rows.device),
+                            torch.from_numpy(idwi_i).to(rows.device))
+    return place_rows(host, normalise, device, mesh)
 
 
 def _signal_wire(flat, idx, ib0, quantize, device, mesh=None):
@@ -617,11 +659,13 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
 
     `batch`: a prepared `VoxelBatch` to reuse one gather and upload; the
     b0 normalisation then runs on its device.  Without one the signal
-    matrix is built on the host and uploaded to `device` (None: the card)
-    once, through `signal_wire`: "u12" (the default; packed 12-bit,
-    error <= 0.5/4095 on the [0, 1] signal), "u16" (<= 0.5/65535) or
-    "f32" (exact), decoded on the card.  On the CPU, and with `batch`,
-    `signal_wire` is ignored, as in the reference.
+    matrix goes to `device` (None: the card) in one upload, through
+    `signal_wire`: "u12" (the default; packed 12-bit, error <= 0.5/4095
+    on the [0, 1] signal) and "u16" (<= 0.5/65535) are built on the host
+    and decoded on the card; "f32" uploads the raw masked rows and
+    normalises them on the card (the host matrix's rows to float
+    rounding).  On the CPU the matrix is built on the host; there, and
+    with `batch`, `signal_wire` is ignored, as in the reference.
 
     `mesh` (parallel/mesh.py), or a `batch` sharded over one: the state
     is row-sharded over the mesh's data axis and the TV term reshards its
@@ -708,7 +752,9 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         vol = np.asarray(dwi.vol)
         flat = vol.reshape(-1, vol.shape[3])
         dev0 = resolve(device) if mesh is None else mesh.data_devices[0]
-        if signal_wire != "f32" and dev0.type == "cuda":
+        if dev0.type == "cuda" and signal_wire == "f32":
+            signal = _signal_f32(flat, idx, ib0, dev0, mesh)
+        elif dev0.type == "cuda":
             signal = _signal_wire(flat, idx, ib0, signal_wire, dev0, mesh)
         else:
             host = _signal_host(flat, idx, ib0)
@@ -767,7 +813,7 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
                   f"({checkpoint_path})")
     dodf_sig = map_shards(lambda s, d, s2: (s * d) / s2, signal, dodf, sig2)
 
-    tabs = tv_buf = mesh_tv = None
+    tabs = tv_buf = mesh_tv = x = None
     if use_tv and mesh is None:
         tv_buf = torch.ones((n_rows, ncomp), dtype=torch.float32,
                             device=dev)
@@ -777,17 +823,18 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
                                 tv_bf16)
 
     # Iterate (verbose prints the per-iteration SNR like the reference,
-    # reference: src/rusd.jl:543-556)
+    # reference: src/rusd.jl:543-556); each iteration hands the next its
+    # x, the first computes it from dodf_sig
     for it in range(it_start + 1, niter + 1):
         if mesh is None:
-            fodf, dodf, dodf_sig, sig2, lam_flat, _ = _rumba_step(
+            fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step(
                 fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
                 idx_d, n_order, ipat_factor, use_tv, tv_shape3, precision,
-                tv_bf16, tabs=tabs, tv_buf=tv_buf)
+                tv_bf16, tabs=tabs, tv_buf=tv_buf, x=x)
         else:
-            fodf, dodf, dodf_sig, sig2, lam_flat, _ = _rumba_step_sharded(
+            fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step_sharded(
                 fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
-                idx_d, n_order, ipat_factor, use_tv, mesh_tv, precision)
+                idx_d, n_order, ipat_factor, use_tv, mesh_tv, precision, x)
         if verbose:
             sm_d, ss_d = _snr_stats(sig2, nmask)
             ss = float(ss_d) if nmask > 1 else 0.0
@@ -805,6 +852,9 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             os.replace(tmp, checkpoint_path)
 
     t0 = _lap(timings, "iterate", t0, devs)
+    # the iteration's row state is not needed past here: free it before
+    # the post stage's temporaries
+    del signal, dodf, dodf_sig, x, tv_buf
     sm_d, ss_d = _snr_stats(sig2, nmask)
     snr_mean = float(sm_d)
     snr_std = float(ss_d) if nmask > 1 else 0.0

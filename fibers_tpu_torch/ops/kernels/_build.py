@@ -166,6 +166,11 @@ def _declare(lib):
     lib.propagate_lcm_resident_threads.restype = ci
     lib.propagate_lcm_selfcheck.argtypes = [ci, vp, vp, ll, cu, cu, ci, vp]
     lib.propagate_lcm_selfcheck.restype = ci
+    lib.rumba_update_launch.argtypes = [vp] * 4 + [ci, vp] + [ci] * 3 + [vp]
+    lib.rumba_update_launch.restype = ci
+    lib.rumba_refit_launch.argtypes = ([vp] * 7 + [ci] * 3 + [cf] * 3
+                                       + [ci, vp])
+    lib.rumba_refit_launch.restype = ci
 
 
 def load_library():
