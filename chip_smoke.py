@@ -22,12 +22,20 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   the iteration (`rumba_update`, `rumba_refit`) against their plain
   versions at config 4's shapes, bit for bit but for the noise variance,
   timed with their bounds, and one iteration split by operator
-  (`[rumba-step]`); config 4 (600 iterations at full width, its signal
-  on the u12 wire, each kernel's exact launch count) chained into ~1M
-  streams and a .trk; a tv_bf16 run; 50 iterations through the row
-  kernels against the same fit through their plain versions (swapped in
-  here); the card's slice against the CPU's on the small config-4
-  phantom.
+  (`[rumba-step]`); the Richardson-Lucy product kernel (`rl_gemm`, the
+  reference's "high" 3-pass and "default" 1-pass bf16 routes on the
+  tensor cores) against its plain version on the same state, all three
+  products, a ragged slice with a NaN row, timed beside the f32 and bf16
+  library products (`[rl-gemm]`); config 4 (600 iterations at full
+  width, its signal on the u12 wire, each kernel's exact launch count)
+  chained into ~1M streams and a .trk; a tv_bf16 run; 50 iterations
+  through the kernels against the same fit through their plain versions
+  (swapped in here: the row kernels alone at precision "highest", then
+  all three at "high"), and against the same
+  fit at "highest" (f32 products; "default" printed beside it), the
+  last two held to the fit's rounding floor (the "highest" fit against
+  itself with its products summed in another order); the card's slice
+  against the CPU's on the small config-4 phantom.
 - DSI (config 3 at full width, chained into ~1M streams), the structure
   tensor on config 4's volume and the CLI (`python -m fibers_tpu_torch
   dsi`/`structens`), with their card-against-CPU checks on small inputs.
@@ -135,16 +143,26 @@ KERNELS = [
      "fibers_tpu/models/rumba.py:343 _rumba_step_core (XLA, the body of "
      "_rumba_block's lax.fori_loop, :420): the noise-variance refit and "
      "the next Bessel ratio", True),
+    ("rl_gemm", "fibers_tpu_torch/csrc/rl_gemm.cu",
+     "fibers_tpu/models/rumba.py:343 _rumba_step_core (XLA): the R-L "
+     "products at precision high/default", True),
 ]
 # the GQI kernel's shapes: the main path's N, and a ragged N at maxdeg 6
 # and 7 (sphere, rows); the first is timed
 GQI_SHAPES = (("sphere_642", 720_896), ("sphere_642", 1_000),
               ("sphere_724", 1_000))
 # the card's peaks for the bounds (H100 SXM data sheet): HBM bytes/s,
-# FP32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s
+# FP32 FLOP/s outside the tensor cores, dense TF32 and bf16 tensor-core
+# FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
+BF16_FLOP_S = 989e12
+# rl_gemm against its plain version, and against the float64 product of
+# the bf16 parts both take, over sum_k |a_ik| |b_kj|: the two versions
+# take the same products in the same 16-deep steps and differ only in the
+# rounding of their f32 sums (tests/test_torch_rl_gemm.py:F32_SUM)
+RL_REL = 2e-6
 # floating-point operations of one TV multiplier element, counting sqrt and
 # divide as one each: the gradient (3 differences, 3 squares, 3 adds, sqrt,
 # 1/norm, 3 products) and the output (3 differences, 2 adds, product,
@@ -167,6 +185,13 @@ SIG2_RTOL = 1e-6
 # GFA is a std over an rms of near-uniform fODF rows (0.05-0.06 on config
 # 4), so a relative fODF change moves it ~20x as much: FIT's rtol / 0.05
 GFA_FIT = dict(rtol=2e-3, atol=1e-6)
+# a config-4 fit's own sensitivity to rounding: after 50 iterations the
+# f32 fit and the same fit with its products' sums over K taken in two
+# halves differ by up to ~1.2e-6 on the fODF, past FIT on ~70 of its 259M
+# values (PERF.md §6).  Two fits whose products differ by rounding
+# alone are held to FLOOR_MARGIN times that distance, measured in the
+# same run (`rounding_floor`)
+FLOOR_MARGIN = 2
 # shapes that cut the TV sweep kernels' 8 x 8 (y, z) tiles and 32-wide
 # component chunks raggedly (tests/test_torch_tv.py:RAGGED); the last two
 # (X = 2; X = 4 with Z < 8) are all prologue and epilogue of the two-slice
@@ -209,13 +234,15 @@ def _wrappers():
         propagate_micro_dir
     from fibers_tpu_torch.ops.kernels.rumba_step import (rumba_refit,
                                                          rumba_update)
+    from fibers_tpu_torch.ops.kernels.rl_gemm import rl_gemm
     return dict(gqi_fused=gqi_fused, tv_fused=tv_fused,
                 tv_multiplier=tv_multiplier, tv_dimsem=tv_dimsem,
                 tv_2slice=tv_2slice, propagate_pair=propagate_pair,
                 propagate_dir=propagate_dir,
                 propagate_lcm_dir=propagate_lcm_dir,
                 propagate_micro_dir=propagate_micro_dir,
-                rumba_update=rumba_update, rumba_refit=rumba_refit)
+                rumba_update=rumba_update, rumba_refit=rumba_refit,
+                rl_gemm=rl_gemm)
 
 
 def reset_counts():
@@ -1582,10 +1609,11 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
     config 4's shapes (715,200 rows, 253 signal and 364 fODF columns), on
     the fit's state after `warm` iterations: bit for bit but for the
     noise variance (rtol SIG2_RTOL), timed in turns with CUDA events
-    beside a copy of the same bytes and the bound.  Then one iteration
-    split by operator (the three products, the TV kernel, the two row
+    beside a copy of the same bytes and the bound; the product kernel
+    `rl_gemm` on the same state (`phase_rl_gemm`).  Then one iteration
+    split by operator (rl_gemm's two launches, the TV kernel, the two row
     kernels, the rest) and the device kernels of a profiled iteration.
-    Returns the two kernels' records."""
+    Returns the three kernels' records."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -1596,6 +1624,7 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
                                                          rumba_refit_plain,
                                                          rumba_update,
                                                          rumba_update_plain)
+    from fibers_tpu_torch.ops.kernels.rl_gemm import rl_gemm
     from fibers_tpu_torch.ops.kernels.tv_fused import build_tables, tv_fused
     from fibers_tpu_torch.ops.masked import mask_indices
 
@@ -1623,9 +1652,12 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
     tabs = build_tables(idx_tv, shape3, cuda)
     tv_buf = torch.ones((n, ncomp), device=cuda)
 
+    packs = rm._pack_products(k, "high")
+
     def step(st, x):
         return rm._rumba_step(*st, signal, k, idx_d, 1, 1, True, shape3,
-                              "high", False, tabs=tabs, tv_buf=tv_buf, x=x)
+                              "high", False, tabs=tabs, tv_buf=tv_buf, x=x,
+                              packs=packs)
 
     x = None
     for _ in range(warm):
@@ -1634,7 +1666,8 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
     del out
     fodf, dodf, dodf_sig, sig2, lam = st
     lam3 = lam.reshape(shape3)
-    num, den = rm._mm(x, k, "high"), rm._mm(dodf, k, "high")
+    num, den = rm._mm(x, k, "high", packs[0]), rm._mm(dodf, k, "high",
+                                                      packs[0])
     tv = tv_fused(fodf, lam3, tabs, tv_buf)
     records = {}
     none = "none: no PyTorch call computes it"
@@ -1664,7 +1697,7 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
         f"({100 * rec['bound_ms'] / ms:.1f}%)")
 
     # rumba_refit: signal, dodf_sig, dodf, sig2 in; dodf_sig, x, sig2 out
-    dodf_new = rm._mm(new, k.T, "high")
+    dodf_new = rm._mm(new, k.T, "high", packs[1])
     args = (signal, dodf_sig, 1, dodf_new, sig2)
     got = rumba_refit(*args)
     torch.cuda.synchronize()
@@ -1705,17 +1738,23 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
         f"{f_ms:.3f} ms, plain {f_plain:.3f} ms, bound "
         f"{rec['first_iteration']['bound_ms']:.3f} ms")
 
+    records["rl_gemm"] = phase_rl_gemm(x, dodf, new, k, packs, reps)
+
     # one iteration (on the same state each time; the step overwrites x
     # with the next, which changes no work) by CUDA events, whole and by
     # operator, each part alone (the rest: the iteration less the parts);
     # then the device kernels of `prof_iters` profiled iterations
     parts = dict(
-        products=lambda: (rm._mm(x, k, "high"), rm._mm(dodf, k, "high"),
-                          rm._mm(new, k.T, "high")),
+        rl_gemm=lambda: (rl_gemm(x, packs[0], 3, a2=dodf),
+                         rl_gemm(new, packs[1], 3)),
         tv_fused=lambda: tv_fused(fodf, lam3, tabs, tv_buf),
         rumba_update=lambda: rumba_update(fodf, num, den, tv),
         rumba_refit=lambda: rumba_refit(*args))
-    split = {name: cuda_ms(fn, reps) for name, fn in parts.items()}
+    split = {}
+    for name, fn in parts.items():
+        fn()                # a warm call: the allocator caches its outputs
+        torch.cuda.synchronize()
+        split[name] = cuda_ms(fn, reps)
     it_ms = cuda_ms(lambda: step(st, x), reps)
     split["rest"] = it_ms - sum(split.values())
     prof_iters = 3
@@ -1745,17 +1784,176 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
     return records
 
 
+def phase_rl_gemm(x, dodf, fodf, k, packs, reps, ragged=100_003):
+    """[rl-gemm] The Richardson-Lucy product kernel against its plain
+    version at config 4's shapes on the fit's state: `x` and `dodf`
+    [N, 253] against the kernel matrix `k` [253, 364] (num and den, one
+    launch), `fodf` [N, 364] against k.T (dodf), `packs` the planes of k
+    and k.T.  For both routes (passes 3, "high"; 1, "default") every
+    output NaN where the plain version's is, and within RL_REL of
+    sum_k |a_ik| |b_kj| of the plain version's and of the float64 product
+    of the bf16 parts both versions take (the plain version's own
+    distance from it printed).  Then the first `ragged` rows (a ragged M)
+    with a NaN in one row of each operand: that row NaN, every other row
+    finite and held the same way.
+    Times by CUDA events, the kernel's two launches in turns with the
+    plain version, beside the f32 torch.matmul of the three products (the
+    route the kernel replaces) and, for passes 1, the bf16 library
+    product; the bound of the three products (bytes, or their bf16
+    operations).  Returns the record: its top-level numbers are the main
+    path's route, "high"."""
+    import torch
+    from fibers_tpu_torch.ops.kernels.rl_gemm import (rl_gemm, rl_gemm_plain,
+                                                      split_bf16)
+
+    t0 = time.time()
+    pk, pkt = packs
+    kt = pkt.b
+    n = x.shape[0]
+
+    def launches(a0, a1, a2, passes):
+        num, den = rl_gemm(a0, pk, passes, a2=a1)
+        return num, den, rl_gemm(a2, pkt, passes)
+
+    def plain(a0, a1, a2, passes):
+        return tuple(rl_gemm_plain(a, b, passes)
+                     for a, b in ((a0, k), (a1, k), (a2, kt)))
+
+    def exact(a, b, passes):
+        """The float64 product of the bf16 parts of `a` and `b` that the
+        kernel and the plain version take."""
+        if passes == 1:
+            return a.bfloat16().double() @ b.bfloat16().double()
+        ah, al = (t_.double() for t_ in split_bf16(a))
+        bh, bl = (t_.double() for t_ in split_bf16(b))
+        return (al @ bh + ah @ bl) + ah @ bh
+
+    def held(outs, ops, passes):
+        """Each product: NaN where the plain version has NaN; the kernel's
+        distance from the float64 product of the parts and from the plain
+        version (both held to RL_REL), and the plain version's own, each
+        the max over sum|a||b|; and the kernel's max |d| from the plain
+        version."""
+        rel = {"exact": [], "plain": [], "plain_exact": []}
+        ab = []
+        for got, (a, b) in zip(outs, ops):
+            ref = rl_gemm_plain(a, b, passes)
+            nan = torch.isnan(ref)
+            check(torch.equal(torch.isnan(got), nan),
+                  "rl_gemm's NaN rows differ from its plain version's")
+            scale = torch.where(nan, 1.0,
+                                a.abs().double() @ b.abs().double())
+            e64 = exact(a, b, passes)
+            for key, v, w in (("exact", got, e64), ("plain", got, ref),
+                              ("plain_exact", ref, e64)):
+                r_ = torch.where(nan, 0.0, (v.double() - w).abs() / scale)
+                rel[key].append(float(r_.max()))
+                del r_
+            ab.append(float(torch.where(nan, 0.0, got - ref).abs().max()))
+            del ref, nan, scale, e64
+            check(max(rel["exact"][-1], rel["plain"][-1]) <= RL_REL,
+                  f"rl_gemm passes={passes} is {rel['plain'][-1]:.3g} of "
+                  f"sum|a||b| from its plain version and "
+                  f"{rel['exact'][-1]:.3g} from the float64 product of its "
+                  f"parts (bound {RL_REL})")
+        return rel, ab
+
+    ops = ((x, k), (dodf, k), (fodf, kt))
+    a_bytes = 4 * (x.numel() + dodf.numel() + fodf.numel())
+    c_bytes = 4 * n * (2 * k.shape[1] + kt.shape[1])
+    flops = 3 * 2 * n * k.shape[0] * k.shape[1]      # one pass of three
+    f32_ms = cuda_ms(lambda: (x @ k, dodf @ k, fodf @ kt), reps)
+    routes = {}
+    for passes, route in ((3, "high"), (1, "default")):
+        outs = launches(x, dodf, fodf, passes)
+        torch.cuda.synchronize()
+        rel, ab = held(outs, ops, passes)
+        del outs
+        # a ragged M, a NaN in one row of each operand
+        r = ragged
+        xa, da, fa = x[:r].clone(), dodf[:r].clone(), fodf[:r].clone()
+        rows = (r // 2, r - 1, 7)
+        xa[rows[0], 17] = da[rows[1], 0] = fa[rows[2], 363] = float("nan")
+        outs = launches(xa, da, fa, passes)
+        torch.cuda.synchronize()
+        every = torch.arange(r, device=x.device)
+        for got, row in zip(outs, rows):
+            check(bool(torch.isnan(got[row]).all())
+                  and bool(torch.isfinite(got[every != row]).all()),
+                  f"rl_gemm passes={passes}: the NaN row {row} of {r} is "
+                  "not NaN alone")
+        rel_r, _ = held(outs, ((xa, k), (da, k), (fa, kt)), passes)
+        rel_r = rel_r["plain"]
+        del outs, xa, da, fa, every
+        ms, plain_ms, t = turns(lambda: launches(x, dodf, fodf, passes),
+                                lambda: plain(x, dodf, fodf, passes), reps)
+        nd_ms = cuda_ms(lambda: rl_gemm(x, pk, passes, a2=dodf), reps)
+        dd_ms = cuda_ms(lambda: rl_gemm(fodf, pkt, passes), reps)
+        planes = (pk.hi.numel() + pkt.hi.numel()) * (2 if passes == 3 else 1)
+        rec = dict(passes=passes, max_abs_err=max(ab), max_rel_err=rel,
+                   ragged_rows=r, ragged_max_rel_err=rel_r, ms=ms,
+                   num_den_ms=nd_ms, dodf_ms=dd_ms, plain_ms=plain_ms,
+                   f32_matmul_ms=f32_ms,
+                   **bound_ms(a_bytes + c_bytes + planes, passes * flops,
+                              BF16_FLOP_S))
+        lib = ""
+        if passes == 1:
+            xb, db, fb, kb, ktb = (t_.bfloat16() for t_ in
+                                   (x, dodf, fodf, k, kt))
+            try:
+                torch.mm(xb[:8], kb, out_dtype=torch.float32)
+                call = "torch.mm(bf16, bf16, out_dtype=torch.float32)"
+                rec["library_ms"] = cuda_ms(lambda: tuple(
+                    torch.mm(a, b, out_dtype=torch.float32) for a, b in
+                    ((xb, kb), (db, kb), (fb, ktb))), reps)
+            except (TypeError, RuntimeError):
+                call = "torch.matmul(bf16, bf16), a bf16 result"
+                rec["library_ms"] = cuda_ms(
+                    lambda: (xb @ kb, db @ kb, fb @ ktb), reps)
+            rec["library_call"] = f"three {call} on bf16 copies"
+            lib = f", library {call} x3 {rec['library_ms']:.3f} ms"
+            del xb, db, fb, kb, ktb
+        routes[route] = rec
+        log(f"[rl-gemm] {route} ({passes} pass{'es' if passes > 1 else ''})"
+            f": num, den [{n} x {k.shape[0]}] @ [{k.shape[0]} x "
+            f"{k.shape[1]}] in one launch, dodf [{n} x {kt.shape[0]}] @ "
+            f"[{kt.shape[0]} x {kt.shape[1]}]: max|d| / sum|a||b| from the "
+            f"plain version {', '.join(f'{v:.3g}' for v in rel['plain'])} "
+            f"(max|d| {max(ab):.3g}), from the float64 product of the bf16 "
+            f"parts {', '.join(f'{v:.3g}' for v in rel['exact'])} (bound "
+            f"{RL_REL} for both), the plain version's own "
+            f"{', '.join(f'{v:.3g}' for v in rel['plain_exact'])}; ragged "
+            f"{r} rows with a NaN row each: NaN rows NaN, the rest "
+            f"{', '.join(f'{v:.3g}' for v in rel_r)}; kernel "
+            f"{ms:.3f} ms "
+            f"(num/den {nd_ms:.3f}, dodf {dd_ms:.3f}), plain "
+            f"{plain_ms:.3f} ms (turns {', '.join(f'{v:.3f}' for v in t)}),"
+            f" f32 torch.matmul x3 {f32_ms:.3f} ms{lib}; bound "
+            f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} "
+            f"({100 * rec['bound_ms'] / ms:.1f}%)")
+        torch.cuda.empty_cache()
+    high = routes["high"]
+    log(f"[rl-gemm] phase {time.time() - t0:.1f} s")
+    return dict(
+        {key: high[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by",
+                                    "f32_matmul_ms")},
+        library_call="none for passes 3: no PyTorch call takes the 3-pass "
+        "bf16 product (routes.default.library_ms: the 1-pass one)",
+        shape=[n, k.shape[0], k.shape[1]], routes=routes)
+
+
 def phase_rumba(dwi, mask, ax, mesh):
     """Config 4 at full width on the card: RUMBA-SD, 600 iterations,
     chained into ~1M streams written to a .trk (i6, then f32 through the
     kernel beside the plain loop, and its `[propagate]` chunk); then a
-    tv_bf16 run, the f32 run it is held to against the same fit through
-    the row kernels' plain versions (`plain_fit`), and the mesh run
-    (`phase_mesh_rumba`).  Each run's launches are exact
-    (`rumba_launches`).  The warm run and
-    the 50- and 20-iteration runs take a prepared batch, which skips the
-    host signal
-    route the counted run times."""
+    tv_bf16 run, the f32 run it is held to, the fit's rounding floor
+    (`rounding_floor`), the f32 run against the same fit through the
+    kernels' plain versions (`plain_fit`) and at the other precisions
+    (`precision_fits`), and the mesh run (`phase_mesh_rumba`).  Each
+    run's launches are exact (`rumba_launches`).  The warm run and the
+    50- and 20-iteration runs take a prepared batch, which skips the host
+    signal route the counted run times."""
     import numpy as np
     import torch
     import fibers_tpu_torch as tt
@@ -1886,68 +2084,219 @@ def phase_rumba(dwi, mask, ax, mesh):
     rumba_launches(counts_b16, "tv_multiplier", nb, 1, "the tv_bf16 run")
     torch.testing.assert_close(fb, ff, rtol=0.05, atol=2e-3)
     del b16, fb
-    plain_fit(dwi, mask, batch, f32, st_f32, nb, nmask)
+    floor, highest, highest_ms = rounding_floor(dwi, mask, batch, nb, nmask)
+    plain_fit(dwi, mask, batch, f32, st_f32, nb, nmask, floor, highest,
+              highest_ms)
+    precision_fits(dwi, mask, batch, f32, st_f32, nb, nmask, floor, highest,
+                   highest_ms)
+    del highest
     del f32, ff
     counts_mesh = phase_mesh_rumba(dwi, mask, mesh, batch, nmask)
     return counts, counts_b16, counts_mesh, chain_counts, prop
 
 
-def rumba_launches(counts, tv, niter, shards, what, tv_per_iter=None):
+def rumba_launches(counts, tv, niter, shards, what, tv_per_iter=None,
+                   products=True):
     """A RUMBA fit of `niter` iterations over `shards` row shards launched
     its TV kernel `tv` (`tv_per_iter` times an iteration, else once a
     shard), `rumba_update` once a shard and iteration, `rumba_refit` once
-    a shard and iteration plus each shard's first-iteration launch, and
-    nothing else: no torch elementwise update is left in the loop."""
+    a shard and iteration plus each shard's first-iteration launch,
+    `rl_gemm` twice a shard and iteration (num and den, then dodf; never
+    without `products`, precision "highest"), and nothing else: no torch
+    elementwise update is left in the loop."""
     want = {tv: niter * (tv_per_iter or shards),
             "rumba_update": niter * shards,
             "rumba_refit": (niter + 1) * shards}
+    if products:
+        want["rl_gemm"] = 2 * niter * shards
     got = {k: v for k, v in counts.items() if v}
     check(got == want, f"{what} launched {got}, not {want}")
 
 
+def rl_gemm_plain_call(a, packed, passes, out=None, a2=None, out2=None):
+    """`rl_gemm`'s arguments and results through its plain version."""
+    from fibers_tpu_torch.ops.kernels.rl_gemm import rl_gemm_plain
+    c = rl_gemm_plain(a, packed.b, passes)
+    if out is not None:
+        c = out.copy_(c)
+    if a2 is None:
+        return c
+    c2 = rl_gemm_plain(a2, packed.b, passes)
+    return c, (c2 if out2 is None else out2.copy_(c2))
+
+
 @contextlib.contextmanager
-def plain_rumba_kernels():
-    """rumba_rec with its two row kernels swapped for their plain
-    versions while the block runs (the fit's own module names; the
-    package has no switch)."""
+def plain_rumba_kernels(products=True):
+    """rumba_rec with its two row kernels and, with `products`, its
+    product kernel swapped for their plain versions while the block runs
+    (the fit's own module names; the package has no switch)."""
     from fibers_tpu_torch.models import rumba
     from fibers_tpu_torch.ops.kernels import rumba_step
-    real = rumba.rumba_update, rumba.rumba_refit
+    real = rumba.rumba_update, rumba.rumba_refit, rumba.rl_gemm
     rumba.rumba_update = rumba_step.rumba_update_plain
     rumba.rumba_refit = rumba_step.rumba_refit_plain
+    if products:
+        rumba.rl_gemm = rl_gemm_plain_call
     try:
         yield
     finally:
-        rumba.rumba_update, rumba.rumba_refit = real
+        rumba.rumba_update, rumba.rumba_refit, rumba.rl_gemm = real
 
 
-def plain_fit(dwi, mask, batch, fit, st_fit, niter, nmask):
-    """[rumba] The `niter`-iteration config-4 fit `fit` (through the
-    kernels, stage times `st_fit`) against the same fit with the row
-    kernels swapped for their plain versions: fODF within FIT, GFA within
-    GFA_FIT, snr_mean within 1e-3; the plain fit launches tv_fused
-    alone."""
+@contextlib.contextmanager
+def split_k_products():
+    """rumba_rec's f32 products (precision "highest") with their sums over
+    K taken in two halves while the block runs: the same products, rounded
+    otherwise."""
     import torch
+    from fibers_tpu_torch.models import rumba
+    real = rumba._mm
+
+    def mm(a, b, precision, packed=None):
+        if precision != "highest":
+            return real(a, b, precision, packed)
+        h = a.shape[1] // 2
+        return torch.matmul(a[:, :h], b[:h]) + torch.matmul(a[:, h:], b[h:])
+    rumba._mm = mm
+    try:
+        yield
+    finally:
+        rumba._mm = real
+
+
+def fit_values(rec, nmask):
+    """(fODF rows, GFA, snr_mean) of a RUMBA result on the card."""
+    return (device_values(rec.fodf)[:nmask], device_values(rec.gfa)[:nmask],
+            rec.snr_mean)
+
+
+def fit_diff(a, b):
+    """max|dfODF|, the fODF values past FIT, max|dGFA|, |dsnr_mean| of two
+    fit_values."""
+    d = (a[0] - b[0]).abs()
+    past = int((d > FIT["atol"] + FIT["rtol"] * b[0].abs()).sum())
+    return (float(d.max()), past, float((a[1] - b[1]).abs().max()),
+            abs(a[2] - b[2]))
+
+
+def fit_line(diff):
+    return (f"max|dfODF|={diff[0]:.3g} ({diff[1]} values past FIT) "
+            f"max|dGFA|={diff[2]:.3g} |dsnr_mean|={diff[3]:.3g}")
+
+
+def held_to_floor(what, a, b, floor):
+    """Two fits whose products differ only by rounding: fODF within
+    FLOOR_MARGIN times the rounding floor, GFA within GFA_FIT, snr_mean
+    within 1e-3."""
+    import torch
+    diff = fit_diff(a, b)
+    check(diff[0] <= FLOOR_MARGIN * floor,
+          f"{what}: max|dfODF| {diff[0]:.3g} past {FLOOR_MARGIN} x the "
+          f"fit's rounding floor {floor:.3g}")
+    torch.testing.assert_close(a[1], b[1], **GFA_FIT)
+    check(diff[3] <= 1e-3, f"{what}: snr_mean differs by {diff[3]}")
+
+
+def rounding_floor(dwi, mask, batch, niter, nmask):
+    """[rumba] The fit's own sensitivity to rounding: the `niter`-iteration
+    config-4 fit at precision "highest" (f32 torch.matmul, TF32 off)
+    against the same fit with its products' sums over K taken in two
+    halves (`split_k_products`).  Returns (the max |dfODF| between them,
+    the "highest" fit's values, its ms per iteration); both fits launch no
+    rl_gemm."""
+    import fibers_tpu_torch as tt
+    runs = []
+    for split in (False, True):
+        reset_counts()
+        st = {}
+        with split_k_products() if split else contextlib.nullcontext():
+            rec = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter,
+                               timings=st, batch=batch, precision="highest")
+        rumba_launches(read_counts(), "tv_fused", niter, 1,
+                       "the highest fit", products=False)
+        runs.append((fit_values(rec, nmask), 1e3 * st["iterate"] / niter))
+        del rec
+    diff = fit_diff(runs[0][0], runs[1][0])
+    log(f"[rumba] {niter} iterations at precision highest "
+        f"{runs[0][1]:.3f} ms per iteration against the same fit with its "
+        f"products summed over K in two halves {runs[1][1]:.3f} ms: "
+        f"{fit_line(diff)} (the fit's rounding floor)")
+    check(diff[0] > 0, "the rounding floor is 0: the two orders gave the "
+          "same fit")
+    return diff[0], runs[0][0], runs[0][1]
+
+
+def plain_fit(dwi, mask, batch, fit, st_fit, niter, nmask, floor,
+              highest, highest_ms):
+    """[rumba] The `niter`-iteration config-4 fits through the kernels
+    against the same fits through their plain versions (swapped in by
+    `plain_rumba_kernels`): at precision "highest" (`highest`, f32
+    products on both sides) with the two row kernels swapped, fODF
+    within FIT, GFA within GFA_FIT, snr_mean within 1e-3, launching
+    tv_fused alone; and `fit` ("high", stage times `st_fit`) with the row
+    kernels and `rl_gemm` swapped, held to the rounding floor
+    (`held_to_floor`), launching tv_fused alone."""
+    import torch
+    import fibers_tpu_torch as tt
+    for products in (False, True):
+        reset_counts()
+        st = {}
+        precision = "high" if products else "highest"
+        with plain_rumba_kernels(products):
+            ref = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter,
+                               timings=st, batch=batch, precision=precision)
+        counts = {k: v for k, v in read_counts().items() if v}
+        fp = fit_values(ref, nmask)
+        del ref
+        fk = fit_values(fit, nmask) if products else highest
+        ms = 1e3 * st_fit["iterate"] / niter if products else highest_ms
+        diff = fit_diff(fk, fp)
+        log(f"[rumba] {niter} iterations at precision {precision} through "
+            f"the kernels {ms:.3f} ms per iteration against "
+            + ("the row kernels and rl_gemm" if products else
+               "the row kernels")
+            + f" swapped for their plain versions "
+            f"{1e3 * st['iterate'] / niter:.3f} ms (launches {counts}); "
+            + fit_line(diff) + (f"; held to {FLOOR_MARGIN} x the rounding "
+                                f"floor {floor:.3g}" if products else
+                                "; held to FIT, GFA_FIT"))
+        check(counts == {"tv_fused": niter},
+              f"the plain fit launched {counts}")
+        if products:
+            held_to_floor("the plain products' fit", fk, fp, floor)
+        else:
+            torch.testing.assert_close(fk[0], fp[0], **FIT)
+            torch.testing.assert_close(fk[1], fp[1], **GFA_FIT)
+            check(diff[3] <= 1e-3, f"snr_mean differs by {diff[3]}")
+        del fp
+
+
+def precision_fits(dwi, mask, batch, fit, st_fit, niter, nmask, floor,
+                   highest, highest_ms):
+    """[rumba] The `niter`-iteration config-4 fit `fit` (precision "high":
+    rl_gemm's 3-pass bf16 products; stage times `st_fit`) against the
+    same fit at "highest" (`highest`: f32 torch.matmul, TF32 off), held
+    to the rounding floor (`held_to_floor`); the "default" fit (1-pass,
+    rl_gemm twice an iteration) against "highest" printed
+    (tests/test_torch_rumba.py holds it to rtol 0.05, atol 2e-3 on the
+    CPU)."""
     import fibers_tpu_torch as tt
     reset_counts()
     st = {}
-    with plain_rumba_kernels():
-        ref = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter, timings=st,
-                           batch=batch)
-    counts = {k: v for k, v in read_counts().items() if v}
-    fk, fp = device_values(fit.fodf)[:nmask], device_values(ref.fodf)[:nmask]
-    gk, gp = device_values(fit.gfa)[:nmask], device_values(ref.gfa)[:nmask]
-    dsnr = abs(fit.snr_mean - ref.snr_mean)
-    log(f"[rumba] {niter} iterations through the row kernels "
-        f"{1e3 * st_fit['iterate'] / niter:.3f} ms per iteration against "
-        f"their plain versions {1e3 * st['iterate'] / niter:.3f} ms "
-        f"(launches {counts}); max|dfODF|={float((fk - fp).abs().max()):.3g}"
-        f" max|dGFA|={float((gk - gp).abs().max()):.3g} "
-        f"|dsnr_mean|={dsnr:.3g}")
-    check(counts == {"tv_fused": niter}, f"the plain fit launched {counts}")
-    torch.testing.assert_close(fk, fp, **FIT)
-    torch.testing.assert_close(gk, gp, **GFA_FIT)
-    check(dsnr <= 1e-3, f"snr_mean differs by {dsnr}")
+    rec = tt.rumba_rec(dwi, mask, tt.sphere_724, niter=niter, timings=st,
+                       batch=batch, precision="default")
+    rumba_launches(read_counts(), "tv_fused", niter, 1, "the default fit")
+    dflt = fit_values(rec, nmask)
+    del rec
+    fh = fit_values(fit, nmask)
+    d_high, d_dflt = fit_diff(fh, highest), fit_diff(dflt, highest)
+    log(f"[rumba] {niter} iterations per precision: high (rl_gemm 3-pass) "
+        f"{1e3 * st_fit['iterate'] / niter:.3f} ms per iteration, highest "
+        f"(f32 torch.matmul) {highest_ms:.3f}, default (rl_gemm 1-pass) "
+        f"{1e3 * st['iterate'] / niter:.3f}; high against highest "
+        f"{fit_line(d_high)} (held to {FLOOR_MARGIN} x the rounding floor "
+        f"{floor:.3g}, GFA_FIT); default against highest {fit_line(d_dflt)}")
+    held_to_floor("high against highest", fh, highest, floor)
 
 
 class signal_spy:
@@ -3030,7 +3379,7 @@ def main():
     wire_launches["rumba_u12"] = counts
     mean_dwi = dwi.vol.mean(axis=3)
     del dwi, mask, ax
-    for name in ("tv_fused", "rumba_update", "rumba_refit"):
+    for name in ("tv_fused", "rumba_update", "rumba_refit", "rl_gemm"):
         launches[name] = counts[name]
     launches["tv_multiplier"] = counts_b16["tv_multiplier"]
     phase_rumba_small()

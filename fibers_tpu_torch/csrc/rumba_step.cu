@@ -4,7 +4,7 @@
 // Replace the elementwise work that XLA fuses inside the reference's
 // iteration program, fibers_tpu/models/rumba.py:_rumba_step_core (the
 // body of _rumba_block's lax.fori_loop).  One iteration of the port is
-// then three f32 products (torch.matmul), the TV kernel and these two
+// then two product launches (rl_gemm.cu), the TV kernel and these two
 // launches, where the eager torch expression made ~28 kernels, each
 // reading and writing whole [N, ndir] or [N, ncomp] arrays.
 //

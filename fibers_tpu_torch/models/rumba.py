@@ -17,9 +17,14 @@ embedded into a dense bf16 stack, the dense stencil kernel runs on it
 row passes around the products are two hand-written kernels
 (ops/kernels/rumba_step.py): `rumba_update`, the fODF update, and
 `rumba_refit`, the noise-variance refit with the next iteration's Bessel
-ratio and numerator operand, so an iteration is three products, the TV
+ratio and numerator operand.  On the card the three products run the
+reference's matrix-unit routes in a hand-written tensor-core kernel
+(ops/kernels/rl_gemm.py: "high" 3-pass bf16, "default" 1-pass), num and
+den in one launch, so an iteration is two product launches, the TV
 kernel and two row passes (the reference's `_rumba_block` program).  On
-a CPU batch all of them run their plain PyTorch versions.
+a CPU batch all of them run their plain PyTorch versions, and the
+products are the f32 ones JAX's CPU computes ("default": bf16-rounded
+operands).
 
 Canales-Rodriguez et al. (2015), PLoS ONE 10(10):e0138910.
 """
@@ -44,6 +49,7 @@ from ..core.mri import MRI
 from ..core.odf import ODF
 from ..device import resolve, upload
 from ..io.dispatch import mri_write_struct
+from ..ops.kernels.rl_gemm import pack_rl, rl_gemm
 from ..ops.kernels.rumba_step import besseli_ratio, rumba_refit, rumba_update
 from ..ops.kernels.tv_fused import build_tables, embed_index, tv_fused
 from ..ops.kernels.tv_stencil import tv_multiplier
@@ -68,6 +74,8 @@ class PaceAbortError(RuntimeError):
 NPEAK = 5
 FTHRESH = 0.1
 _PRECISIONS = ("default", "high", "highest")
+# the passes of the card's tensor-core routes (ops/kernels/rl_gemm.py)
+_PASSES = {"high": 3, "default": 1}
 
 
 @dataclass
@@ -186,31 +194,59 @@ def _tv_term(fodf, lam3, tabs, tv_bf16, out):
     return out
 
 
-def _mm(a, b, precision):
-    """The R-L products.  "high"/"highest": f32 (TF32 stays off);
-    "default": bf16-rounded operands, f32 accumulation."""
+def _tensor_cores(a, precision):
+    """Whether a product of `a` runs `rl_gemm`: "high" and "default" on
+    the card."""
+    return a.device.type == "cuda" and precision in _PASSES
+
+
+def _pack_products(kernel, precision):
+    """`rl_gemm`'s planes of the kernel matrix and of its transpose, for
+    the products of a fit at `precision` on `kernel`'s device; (None,
+    None) where they take no `rl_gemm` (the CPU, "highest")."""
+    if not _tensor_cores(kernel, precision):
+        return None, None
+    return pack_rl(kernel), pack_rl(kernel.T.contiguous())
+
+
+def _mm(a, b, precision, packed=None):
+    """One R-L product a @ b (reference: fibers_tpu/models/rumba.py:46-55).
+    On the card "high" is `rl_gemm`'s 3-pass bf16 tensor-core product and
+    "default" its 1-pass one, with `b`'s planes `packed` (`pack_rl`;
+    packed here when None); "highest" is the f32 product (TF32 stays
+    off).  On the CPU "high" and "highest" are the f32 product, which
+    JAX's CPU computes at every precision, and "default" the product of
+    the bf16-rounded operands with f32 accumulation."""
+    if _tensor_cores(a, precision):
+        if packed is None:
+            packed = pack_rl(b.contiguous())
+        return rl_gemm(a, packed, _PASSES[precision])
     if precision == "default":
         return torch.matmul(a.bfloat16().float(), b.bfloat16().float())
     return torch.matmul(a, b)
 
 
-def _update_rows(fodf, x, dodf, tv, kernel, precision):
-    """The Richardson-Lucy update of the fODF rows: the two products, then
+def _update_rows(fodf, x, dodf, tv, kernel, precision, packed):
+    """The Richardson-Lucy update of the fODF rows: the two products (one
+    `rl_gemm` launch on the card, `packed` the kernel's planes), then
     `rumba_update` written over the numerator's buffer.  `x` is
     signal * besseli_ratio(n_order, dodf_sig) (`rumba_refit`), `tv` the
     multiplier rows or None."""
-    num = _mm(x, kernel, precision)
-    den = _mm(dodf, kernel, precision)
+    if _tensor_cores(x, precision):
+        num, den = rl_gemm(x, packed, _PASSES[precision], a2=dodf)
+    else:
+        num = _mm(x, kernel, precision)
+        den = _mm(dodf, kernel, precision)
     return rumba_update(fodf, num, den, tv, out=num)
 
 
 def _refit_rows(fodf, signal, dodf_sig, sig2, kernel, n_order, precision,
-                x):
-    """dODF of the new fODF, then `rumba_refit`: its signal ratio, the
-    noise variance (reference: src/rusd.jl:305-323) and the next
-    iteration's x, written over this iteration's `x`.  Returns (dodf,
-    dodf_sig, sig2, x)."""
-    dodf = _mm(fodf, kernel.T, precision)
+                x, packed_t):
+    """dODF of the new fODF (`packed_t` the transpose's planes on the
+    card), then `rumba_refit`: its signal ratio, the noise variance
+    (reference: src/rusd.jl:305-323) and the next iteration's x, written
+    over this iteration's `x`.  Returns (dodf, dodf_sig, sig2, x)."""
+    dodf = _mm(fodf, kernel.T, precision, packed_t)
     return (dodf,) + rumba_refit(signal, dodf_sig, n_order, dodf, sig2,
                                  out=x)
 
@@ -224,7 +260,7 @@ def _first_x(signal, dodf_sig, n_order):
 def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
                 idx_mask, n_order, ipat_factor, use_tv, shape3,
                 precision="high", tv_bf16=False, tabs=None, tv_buf=None,
-                x=None):
+                x=None, packs=None):
     """One RUMBA-SD iteration over the voxel batch.
     (reference: src/rusd.jl:266-339)
 
@@ -232,8 +268,9 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
     [prod(shape3)] on the TV crop `shape3`, signal [N, ndir], kernel
     [ndir, ncomp], idx_mask the crop cells of the first len(idx_mask)
     rows (later rows are padding).  The TV tables `tabs`
-    (tv_fused.build_tables) and the multiplier buffer `tv_buf` are built
-    here when not given.  `x` [N, ndir] is the numerator operand the
+    (tv_fused.build_tables), the multiplier buffer `tv_buf` and the
+    products' planes `packs` (`_pack_products`) are built here when not
+    given.  `x` [N, ndir] is the numerator operand the
     previous iteration returned, which this one overwrites with the next
     (None: computed from dodf_sig).  The other arguments are left as they
     are.
@@ -242,6 +279,8 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
     nmask = idx_mask.shape[0]
     if x is None:
         x = _first_x(signal, dodf_sig, n_order)
+    if packs is None:
+        packs = _pack_products(kernel, precision)
 
     tv = None
     if use_tv:
@@ -250,9 +289,10 @@ def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
         if tabs is None:
             tabs = build_tables(idx_mask.cpu().numpy(), shape3, fodf.device)
         tv = _tv_term(fodf, lam_flat.reshape(shape3), tabs, tv_bf16, tv_buf)
-    fodf = _update_rows(fodf, x, dodf, tv, kernel, precision)
+    fodf = _update_rows(fodf, x, dodf, tv, kernel, precision, packs[0])
     dodf, dodf_sig, sig2, x = _refit_rows(fodf, signal, dodf_sig, sig2,
-                                          kernel, n_order, precision, x)
+                                          kernel, n_order, precision, x,
+                                          packs[1])
 
     # Lambda update (reference: src/rusd.jl:326-339), over the real rows
     if use_tv:
@@ -326,28 +366,32 @@ class _MeshTV:
 
 def _rumba_step_sharded(fodf, dodf, dodf_sig, sig2, lam, signal, kernel,
                         idx_mask, n_order, ipat_factor, use_tv, tv,
-                        precision, x=None):
+                        precision, x=None, packs=None):
     """`_rumba_step` over ShardedRows state: the row-wise work once per
-    shard (`kernel` and `idx_mask` {device: tensor}), the TV multiplier
-    resharded over components (`tv`, a `_MeshTV`), and lambda from the
-    real rows of every shard.  `lam` is {device: [prod(tv.shape3)]} over
-    the mesh's devices.  `x` and the result as `_rumba_step`'s."""
+    shard (`kernel` and `idx_mask` {device: tensor}, `packs` {device:
+    `_pack_products`}, built here when None), the TV multiplier resharded
+    over components (`tv`, a `_MeshTV`), and lambda from the real rows of
+    every shard.  `lam` is {device: [prod(tv.shape3)]} over the mesh's
+    devices.  `x` and the result as `_rumba_step`'s."""
     mesh = fodf.mesh
     nmask = next(iter(idx_mask.values())).shape[0]
     if x is None:
         x = map_shards(lambda s, ds: _first_x(s, ds, n_order), signal,
                        dodf_sig)
+    if packs is None:
+        packs = {d: _pack_products(k, precision) for d, k in kernel.items()}
     t = None
     if use_tv:
         t = tv(fodf, {d: v.reshape(tv.shape3) for d, v in lam.items()})
     fodf = map_shards(
-        lambda f, x_, d, t_, k: _update_rows(f, x_, d, t_, k, precision),
-        fodf, x, dodf, t, kernel)
+        lambda f, x_, d, t_, k, p: _update_rows(f, x_, d, t_, k, precision,
+                                                p[0]),
+        fodf, x, dodf, t, kernel, packs)
     del t
     dodf, dodf_sig, sig2, x = map_shards(
-        lambda f, s, ds, s2, k, x_: _refit_rows(f, s, ds, s2, k, n_order,
-                                                precision, x_),
-        fodf, signal, dodf_sig, sig2, kernel, x)
+        lambda f, s, ds, s2, k, x_, p: _refit_rows(f, s, ds, s2, k, n_order,
+                                                   precision, x_, p[1]),
+        fodf, signal, dodf_sig, sig2, kernel, x, packs)
     if use_tv:
         real = sig2[:nmask]
         if ipat_factor == 1:
@@ -652,9 +696,15 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     or by fibers_tpu.  A checkpoint of another problem raises
     `ValueError`; `on_mismatch="fresh"` warns and starts from scratch.
 
-    `precision` of the R-L products: "high" (default) and "highest" run
-    in f32 with TF32 off; "default" rounds the operands to bf16 and
-    accumulates in f32.  `tv_bf16` runs the TV stencil on a bf16 stack
+    `precision` of the R-L products, the reference's matrix-unit routes:
+    on the card "high" (default) is the 3-pass bf16 product (x = hi + lo
+    in bf16, lo*hi + hi*lo + hi*hi on the tensor cores, f32
+    accumulation) and "default" the 1-pass one (bf16-rounded operands,
+    f32 accumulation), both in the hand-written `rl_gemm` kernel;
+    "highest" is the f32 product (TF32 off).  On the CPU "high" and
+    "highest" are the f32 product, as JAX's CPU computes every
+    precision, and "default" the product of bf16-rounded operands with
+    f32 accumulation.  `tv_bf16` runs the TV stencil on a bf16 stack
     (differences in bf16, the rest in f32); the estimate stays f32.
 
     `batch`: a prepared `VoxelBatch` to reuse one gather and upload; the
@@ -777,6 +827,9 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             s.shape[0], len(row)).clone(), signal)
 
     kernel_d = replicate(kernel, mesh, dev)
+    # rl_gemm's planes of the kernel and its transpose, once per device
+    packs = _pack_products(kernel_d, precision) if mesh is None else {
+        d: _pack_products(k, precision) for d, k in kernel_d.items()}
     fodf = rows_of(fodf0)
     dodf = rows_of(kernel @ fodf0)
     sig2 = rows_of(np.full(1, lam0, np.float32))
@@ -830,11 +883,12 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step(
                 fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
                 idx_d, n_order, ipat_factor, use_tv, tv_shape3, precision,
-                tv_bf16, tabs=tabs, tv_buf=tv_buf, x=x)
+                tv_bf16, tabs=tabs, tv_buf=tv_buf, x=x, packs=packs)
         else:
             fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step_sharded(
                 fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
-                idx_d, n_order, ipat_factor, use_tv, mesh_tv, precision, x)
+                idx_d, n_order, ipat_factor, use_tv, mesh_tv, precision, x,
+                packs)
         if verbose:
             sm_d, ss_d = _snr_stats(sig2, nmask)
             ss = float(ss_d) if nmask > 1 else 0.0

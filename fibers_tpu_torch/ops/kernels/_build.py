@@ -171,6 +171,12 @@ def _declare(lib):
     lib.rumba_refit_launch.argtypes = ([vp] * 7 + [ci] * 3 + [cf] * 3
                                        + [ci, vp])
     lib.rumba_refit_launch.restype = ci
+    lib.rl_gemm_plane_words.argtypes = [ci, ci]
+    lib.rl_gemm_plane_words.restype = ll
+    lib.rl_pack_launch.argtypes = [vp] * 3 + [ci, ci, vp]
+    lib.rl_pack_launch.restype = ci
+    lib.rl_gemm_launch.argtypes = [vp] * 6 + [ll, ci, ci, ci, vp]
+    lib.rl_gemm_launch.restype = ci
 
 
 def load_library():

@@ -5,9 +5,9 @@ Counterpart of the elementwise work that XLA fuses inside the reference's
 iteration program, `fibers_tpu/models/rumba.py:_rumba_step_core` (the
 body of `_rumba_block`'s `lax.fori_loop`).  One iteration runs
 
-    num, den = x @ kernel, dodf @ kernel            (torch.matmul)
+    num, den = x @ kernel, dodf @ kernel            (rl_gemm, one launch)
     fodf     = rumba_update(fodf, num, den, tv)
-    dodf     = fodf @ kernel.T                      (torch.matmul)
+    dodf     = fodf @ kernel.T                      (rl_gemm)
     dodf_sig, sig2, x = rumba_refit(signal, dodf_sig, n_order, dodf, sig2)
 
 where `x = signal * besseli_ratio(n_order, dodf_sig)` is the next
