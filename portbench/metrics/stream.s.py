@@ -1,0 +1,6 @@
+"""stream.s: mean seconds per window subject of the span around the
+pipeline's `stream` call, ended by a synchronize.  Host clock, traced run."""
+
+
+def read(run):
+    return run.span_mean("stream")
