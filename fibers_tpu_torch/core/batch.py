@@ -30,6 +30,7 @@ from ..device import resolve
 from ..ops.masked import mask_indices, padded_size
 from ..ops.transfer import quant_u8_scale, quant_u12_scale, quant_u16_scale
 from ..parallel.mesh import ShardedRows, as_mesh, pad_to_multiple, put_batch
+from ..utils.profiling import span
 
 __all__ = ["VoxelBatch", "prepare_batch"]
 
@@ -284,11 +285,12 @@ def prepare_batch(dwi, mask, mesh=None, wire: str = "auto",
 
     np_dt, torch_dt = wire_dtypes(quantize)
     ncol = u12_row_bytes(nvol) if quantize == "u12" else nvol
-    host = torch.empty((n_pad, ncol), dtype=torch_dt,
-                       pin_memory=any(d.type == "cuda" for d in devs))
-    h = host.numpy().view(np_dt)
-    _gather_rows(flat, idx, quantize, scale, out=h[:len(idx)])
-    h[len(idx):] = 0
+    with span("batch.gather"):
+        host = torch.empty((n_pad, ncol), dtype=torch_dt,
+                           pin_memory=any(d.type == "cuda" for d in devs))
+        h = host.numpy().view(np_dt)
+        _gather_rows(flat, idx, quantize, scale, out=h[:len(idx)])
+        h[len(idx):] = 0
 
     signals = place_rows(host, decoder(quantize, scale, nvol), device, mesh)
     return VoxelBatch(idx=idx, signals=signals, n=len(idx))

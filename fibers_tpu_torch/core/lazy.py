@@ -11,7 +11,8 @@ Counterpart of fibers_tpu/core/lazy.py.  Only the fetch differs: the
 reference goes through its chunked transfer path; here the tensor is
 copied to the host (a volume's real rows, scattered with
 `ops.masked.scatter_frames`).  The materialized array is identical to
-what an eager path would produce.
+what an eager path would produce.  The copy is the span `lazy.fetch`,
+the scatter `lazy.scatter` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import fetch
 from ..ops.masked import scatter_frames
+from ..utils.profiling import span
 
 __all__ = ["LazyVolume", "LazyArray", "lazy_stack_volumes"]
 
@@ -58,7 +61,8 @@ class LazyArray:
 
     def materialize(self) -> np.ndarray:
         if self._host is None:
-            self._host = self._values.cpu().numpy()
+            with span("lazy.fetch"):
+                self._host = fetch(self._values)
             self._values = None      # release device memory
         return self._host
 
@@ -77,7 +81,8 @@ class _StackFetch:
 
     def row(self, i) -> np.ndarray:
         if self._host is None:
-            self._host = self._values.cpu().numpy()
+            with span("lazy.fetch"):
+                self._host = fetch(self._values)
             self._values = None      # release device memory
         return self._host[i]
 
@@ -121,8 +126,10 @@ class LazyVolume:
     def materialize(self) -> np.ndarray:
         """Copy + scatter into the host volume (cached)."""
         if self._host is None:
-            vals = self._values[:len(self._idx)].cpu().numpy()
-            self._host = scatter_frames(vals, self._idx, self._shape3)
+            with span("lazy.fetch"):
+                vals = fetch(self._values[:len(self._idx)])
+            with span("lazy.scatter"):
+                self._host = scatter_frames(vals, self._idx, self._shape3)
             self._values = None      # release device memory
         return self._host
 
@@ -143,6 +150,7 @@ class _LazySliceVolume(LazyVolume):
     def materialize(self) -> np.ndarray:
         if self._host is None:
             vals = self._fetch.row(self._row)[:len(self._idx)]
-            self._host = scatter_frames(vals, self._idx, self._shape3)
+            with span("lazy.scatter"):
+                self._host = scatter_frames(vals, self._idx, self._shape3)
             self._fetch = None
         return self._host

@@ -19,7 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve", "upload"]
+from .utils.profiling import count
+
+__all__ = ["resolve", "upload", "fetch"]
 
 
 def resolve(device=None) -> torch.device:
@@ -42,3 +44,14 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def fetch(t) -> np.ndarray:
+    """A tensor, or the rows of a `ShardedRows`, as a host array
+    (`t.cpu().numpy()`: a copy from a CUDA device waits for the work
+    queued before it).  The bytes copied from CUDA devices are added to
+    the counter `transfer.d2h_bytes` (utils/profiling.py)."""
+    for s in getattr(t, "shards", (t,)):
+        if s is not None and s.is_cuda:
+            count("transfer.d2h_bytes", s.nbytes)
+    return t.cpu().numpy()

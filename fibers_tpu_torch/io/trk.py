@@ -17,6 +17,7 @@ import numpy as np
 from ..core.geometry import vox2ras_to_orient
 from ..core.mri import MRI
 from ..core.xform import Xform, xfm_apply
+from ..utils.profiling import count
 
 __all__ = ["Tract", "trk_read", "trk_write", "str_add", "str_merge",
            "str_xform"]
@@ -521,18 +522,12 @@ def _pack_records(npts, pts, vsz, scalars=None):
 def _trk_write_packed(tr: Tract, outfile: str) -> bool:
     """Vectorized writer for packed tractograms (with or without packed
     per-point scalars; no properties)."""
-    from ..utils.profiling import prof
-
     vsz = np.ascontiguousarray(tr.voxel_size, np.float32)
-    with prof("trk.build_buffer"):
-        out = _pack_records(tr.npts, tr.packed_xyz, vsz,
-                            tr.packed_scalars)
-
+    out = _pack_records(tr.npts, tr.packed_xyz, vsz, tr.packed_scalars)
     header = _trk_header_bytes(tr)
-    with prof("trk.file_write"):
-        with open(outfile, "wb", buffering=1 << 22) as f:
-            f.write(header)
-            out.astype("<f4", copy=False).tofile(f)
+    with open(outfile, "wb", buffering=1 << 22) as f:
+        f.write(header)
+        out.astype("<f4", copy=False).tofile(f)
     return len(header) != 1000
 
 
@@ -541,6 +536,7 @@ class TrkSink:
     up front), then chunks of packed lines appended as they arrive — so
     file output overlaps with whatever produces the points (used by
     `stream(..., trk_sink=...)` to hide the write under device fetches).
+    Every byte it writes is counted as `trk.bytes` (utils/profiling.py).
     """
 
     def __init__(self, outfile: str, tr: Tract, n_count: int):
@@ -549,25 +545,24 @@ class TrkSink:
         self._outfile = outfile
         self._vsz = np.ascontiguousarray(tr.voxel_size, np.float32)
         self._f = open(outfile, "wb", buffering=1 << 22)
-        self._f.write(_trk_header_bytes(tr))
+        header = _trk_header_bytes(tr)
+        self._f.write(header)
+        count("trk.bytes", len(header))
         self._written = 0
 
     def _write(self, out: np.ndarray) -> None:
         """Write packed records to the file."""
         out.astype("<f4", copy=False).tofile(self._f)
+        count("trk.bytes", 4 * out.size)
 
     def append(self, pts: np.ndarray, npts: np.ndarray,
                scalars: np.ndarray = None) -> None:
         """Append lines (pts [total, 3] voxel coords, counts [nlines],
         optional per-point scalars [total, ns])."""
-        from ..utils.profiling import prof
-
         npts = np.asarray(npts, np.int64)
         if len(npts) == 0:
             return
-        with prof("trk.sink_append"):
-            out = _pack_records(npts, pts, self._vsz, scalars)
-            self._write(out)
+        self._write(_pack_records(npts, pts, self._vsz, scalars))
         self._written += len(npts)
 
     def append_deltas(self, q: np.ndarray, npts: np.ndarray,
@@ -579,7 +574,6 @@ class TrkSink:
         intermediate.  Returns False when the native helper is
         unavailable (caller falls back to decode + append)."""
         from .. import native
-        from ..utils.profiling import prof
 
         clib = native.lib()
         if clib is None or not hasattr(clib, "decode_delta_trk_records"):
@@ -591,17 +585,16 @@ class TrkSink:
         off = np.zeros(n, np.int64)
         np.cumsum(npts32[:-1], dtype=np.int64, out=off[1:])
         total = int(off[-1] + npts32[-1])
-        with prof("trk.sink_append_fused"):
-            from ..utils.hostbuf import scratch
-            q = np.ascontiguousarray(q[:total * 3], np.int8)
-            anch = np.ascontiguousarray(anchors, np.float32)
-            out = scratch("trk.records", n + 3 * total, np.float32)
-            clib.decode_delta_trk_records(
-                native.as_i8_ptr(q), native.as_i64_ptr(off),
-                native.as_i32_ptr(npts32), native.as_f32_ptr(anch),
-                n, np.float32(1.0 / qscale), native.as_f32_ptr(self._vsz),
-                native.as_f32_ptr(out))
-            self._write(out)
+        from ..utils.hostbuf import scratch
+        q = np.ascontiguousarray(q[:total * 3], np.int8)
+        anch = np.ascontiguousarray(anchors, np.float32)
+        out = scratch("trk.records", n + 3 * total, np.float32)
+        clib.decode_delta_trk_records(
+            native.as_i8_ptr(q), native.as_i64_ptr(off),
+            native.as_i32_ptr(npts32), native.as_f32_ptr(anch),
+            n, np.float32(1.0 / qscale), native.as_f32_ptr(self._vsz),
+            native.as_f32_ptr(out))
+        self._write(out)
         self._written += n
         return True
 
@@ -612,7 +605,6 @@ class TrkSink:
         decode + record pack, skipping even the int8 expansion.  Returns
         False when the native helper is unavailable."""
         from .. import native
-        from ..utils.profiling import prof
 
         clib = native.lib()
         if clib is None or not hasattr(clib, "decode_delta6_trk_records"):
@@ -624,20 +616,19 @@ class TrkSink:
         off = np.zeros(n, np.int64)
         np.cumsum(npts32[:-1], dtype=np.int64, out=off[1:])
         total = int(off[-1] + npts32[-1])
-        with prof("trk.sink_append_fused"):
-            from ..utils.hostbuf import scratch
-            w = np.ascontiguousarray(words.view(np.uint32))
-            need = ((total * 3 + 15) // 16) * 3
-            if len(w) < need:
-                return False
-            anch = np.ascontiguousarray(anchors, np.float32)
-            out = scratch("trk.records", n + 3 * total, np.float32)
-            clib.decode_delta6_trk_records(
-                native.as_u32_ptr(w), native.as_i64_ptr(off),
-                native.as_i32_ptr(npts32), native.as_f32_ptr(anch),
-                n, np.float32(1.0 / qscale), native.as_f32_ptr(self._vsz),
-                native.as_f32_ptr(out))
-            self._write(out)
+        from ..utils.hostbuf import scratch
+        w = np.ascontiguousarray(words.view(np.uint32))
+        need = ((total * 3 + 15) // 16) * 3
+        if len(w) < need:
+            return False
+        anch = np.ascontiguousarray(anchors, np.float32)
+        out = scratch("trk.records", n + 3 * total, np.float32)
+        clib.decode_delta6_trk_records(
+            native.as_u32_ptr(w), native.as_i64_ptr(off),
+            native.as_i32_ptr(npts32), native.as_f32_ptr(anch),
+            n, np.float32(1.0 / qscale), native.as_f32_ptr(self._vsz),
+            native.as_f32_ptr(out))
+        self._write(out)
         self._written += n
         return True
 

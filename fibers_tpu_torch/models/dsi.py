@@ -22,7 +22,6 @@ Wedeen et al. (2005), Magn Reson Med 54(6):1377-1386.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List
 
@@ -39,6 +38,7 @@ from ..io.dispatch import mri_write_struct
 from ..ops.masked import gather_frames, mask_indices
 from ..ops.peaks import build_neighbors, peak_mask, top_peaks
 from ..parallel.mesh import ShardedRows, as_mesh, shard_max
+from ..utils.profiling import lap
 
 __all__ = ["DSI", "dsi_rec", "dsi_write"]
 
@@ -233,147 +233,138 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         from ..core import odf as _odf
         odf_dirs = _odf.sphere_642
 
-    def stage(name, t0, devs):
-        if timings is not None:
-            for d in devs:
-                if d.type == "cuda":
-                    torch.cuda.synchronize(d)
-            timings[name] = time.time() - t0
-        return time.time()
+    with lap(timings, "dsi.upload") as stage:
+        nvert = odf_dirs.nvert_half
+        nfft, iq_flat, hann = _dsi_grid(np.asarray(dwi.bval, np.float32),
+                                        np.asarray(dwi.bvec, np.float32),
+                                        hann_width)
+        wmat = _radial_weight_matrix(nfft, odf_dirs)
+        _, verts_first, faces0 = half_sphere(odf_dirs)
+        nbr, nbr_ok = build_neighbors(faces0, nvert)
 
-    t0 = time.time()
-    nvert = odf_dirs.nvert_half
-    nfft, iq_flat, hann = _dsi_grid(np.asarray(dwi.bval, np.float32),
-                                    np.asarray(dwi.bvec, np.float32),
-                                    hann_width)
-    wmat = _radial_weight_matrix(nfft, odf_dirs)
-    _, verts_first, faces0 = half_sphere(odf_dirs)
-    nbr, nbr_ok = build_neighbors(faces0, nvert)
+        # the Hermitian full -> half spectrum mirror folded into the GEMM
+        # operand and the PDF sample indices; the PDF sum as one extra column
+        # (the count of full cells per half cell)
+        half_map = _half_spectrum_map(nfft)
+        nhalf = nfft * nfft * (nfft // 2 + 1)
+        wmat_aug = np.zeros((nhalf, nvert + 1), np.float32)
+        np.add.at(wmat_aug[:, :nvert], half_map, wmat)
+        wmat_aug[:, nvert] = np.bincount(half_map, minlength=nhalf)
+        iq_half = half_map[iq_flat]
+        cells, cols = _unique_cells(iq_flat)
 
-    # the Hermitian full -> half spectrum mirror folded into the GEMM
-    # operand and the PDF sample indices; the PDF sum as one extra column
-    # (the count of full cells per half cell)
-    half_map = _half_spectrum_map(nfft)
-    nhalf = nfft * nfft * (nfft // 2 + 1)
-    wmat_aug = np.zeros((nhalf, nvert + 1), np.float32)
-    np.add.at(wmat_aug[:, :nvert], half_map, wmat)
-    wmat_aug[:, nvert] = np.bincount(half_map, minlength=nhalf)
-    iq_half = half_map[iq_flat]
-    cells, cols = _unique_cells(iq_flat)
+        # the mesh of a sharded batch; a one-device mesh runs unsharded there
+        if mesh is None and batch is not None:
+            mesh = batch.mesh
+        if mesh is not None and mesh.size == 1:
+            device, mesh = mesh.flat_devices[0], None
+        if mesh is not None:
+            dev = mesh.data_devices[0]
+            if batch is None or not isinstance(batch.signals, ShardedRows):
+                batch = prepare_batch(dwi, mask, mesh=mesh, wire=wire
+                                      if dev.type == "cuda" else "f32")
+        else:
+            dev = batch.signals.device if batch is not None else \
+                resolve(device)
+            if batch is None and dev.type != "cpu":
+                batch = prepare_batch(dwi, mask, wire=wire, device=dev)
+        ndata = mesh.ndata if mesh is not None else 1
+        devs = [dev] if mesh is None else mesh.distinct_devices()
 
-    # the mesh of a sharded batch; a one-device mesh runs unsharded there
-    if mesh is None and batch is not None:
-        mesh = batch.mesh
-    if mesh is not None and mesh.size == 1:
-        device, mesh = mesh.flat_devices[0], None
-    if mesh is not None:
-        dev = mesh.data_devices[0]
-        if batch is None or not isinstance(batch.signals, ShardedRows):
-            batch = prepare_batch(dwi, mask, mesh=mesh, wire=wire
-                                  if dev.type == "cuda" else "f32")
-    else:
-        dev = batch.signals.device if batch is not None else \
-            resolve(device)
-        if batch is None and dev.type != "cpu":
-            batch = prepare_batch(dwi, mask, wire=wire, device=dev)
-    ndata = mesh.ndata if mesh is not None else 1
-    devs = [dev] if mesh is None else mesh.distinct_devices()
+        # chunk guard: grid f32 + half spectrum (c64 over nfft^3/2) + FFT
+        # scratch ~= 12 bytes per grid cell per voxel, per device; a sharded
+        # chunk splits evenly over the data axis (fibers_tpu/models/dsi.py:
+        # 249-266)
+        budget = mem_budget
+        if batch is not None:
+            budget = max(1e9, mem_budget - batch.signals.numel() * 4 / ndata)
+        max_chunk = max(8, int(budget * ndata / (nfft ** 3 * 12)))
+        if chunk * ndata > max_chunk:
+            chunk = 1 << int(np.floor(np.log2(max_chunk)))
+            if chunk % ndata:
+                chunk = max(ndata, (chunk // ndata) * ndata)
+        else:
+            chunk = chunk * ndata
+        per_dev = chunk // ndata
 
-    # chunk guard: grid f32 + half spectrum (c64 over nfft^3/2) + FFT
-    # scratch ~= 12 bytes per grid cell per voxel, per device; a sharded
-    # chunk splits evenly over the data axis (fibers_tpu/models/dsi.py:
-    # 249-266)
-    budget = mem_budget
-    if batch is not None:
-        budget = max(1e9, mem_budget - batch.signals.numel() * 4 / ndata)
-    max_chunk = max(8, int(budget * ndata / (nfft ** 3 * 12)))
-    if chunk * ndata > max_chunk:
-        chunk = 1 << int(np.floor(np.log2(max_chunk)))
-        if chunk % ndata:
-            chunk = max(ndata, (chunk // ndata) * ndata)
-    else:
-        chunk = chunk * ndata
-    per_dev = chunk // ndata
+        if batch is not None:
+            idx = batch.idx
+            signals = batch.signals
+        else:
+            idx = mask_indices(mask.vol)
+            signals = torch.from_numpy(
+                gather_frames(dwi.vol, idx).astype(np.float32))
+        n = len(idx)
+        nq = len(iq_flat)
 
-    if batch is not None:
-        idx = batch.idx
-        signals = batch.signals
-    else:
-        idx = mask_indices(mask.vol)
-        signals = torch.from_numpy(
-            gather_frames(dwi.vol, idx).astype(np.float32))
-    n = len(idx)
-    nq = len(iq_flat)
+        tables = (cells, cols, hann, iq_half.astype(np.int64), wmat_aug,
+                  verts_first, nbr, nbr_ok)
+        args = {d: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                         for a in tables) for d in devs}
+        stage.devs = devs
 
-    tables = (cells, cols, hann, iq_half.astype(np.int64), wmat_aug,
-              verts_first, nbr, nbr_ok)
-    args = {d: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
-                     for a in tables) for d in devs}
-    t0 = stage("upload", t0, devs)
-
-    # one part per local shard (the whole batch without a mesh), each on
-    # its device; the chunk loop interleaves the parts
-    if isinstance(signals, ShardedRows):
-        real = signals[:n]
-        parts = [None if s is None else (s, s.device) for s in real.shards]
-    else:
-        parts = [(signals, dev)]
-    outs = []
-    for part in parts:
-        if part is None:
-            outs.append(None)
-            continue
-        rows, d = part[0].shape[0], part[1]
-        f32 = dict(dtype=torch.float32, device=d)
-        # the QA normaliser stays on the device: no host sync per chunk
-        outs.append([torch.empty((rows, nq), **f32),
-                     torch.empty((rows, nvert), **f32),
-                     torch.empty((rows, NPEAK, 3), **f32),
-                     torch.empty((rows, NPEAK), **f32),
-                     torch.zeros((), **f32)])
-    longest = max(p[0].shape[0] for p in parts if p is not None)
-    for lo in range(0, longest, per_dev):
-        for part, o in zip(parts, outs):
-            if part is None or lo >= part[0].shape[0]:
+    with lap(timings, "dsi.chunks", devs):
+        # one part per local shard (the whole batch without a mesh), each on
+        # its device; the chunk loop interleaves the parts
+        if isinstance(signals, ShardedRows):
+            real = signals[:n]
+            parts = [None if s is None else (s, s.device) for s in real.shards]
+        else:
+            parts = [(signals, dev)]
+        outs = []
+        for part in parts:
+            if part is None:
+                outs.append(None)
                 continue
-            sig, d = part
-            hi = min(lo + per_dev, sig.shape[0])
-            pdf_c, odf_c, vecs_c, qa_c, odfmean = _dsi_kernel(
-                sig[lo:hi].to(d), *args[d], nfft=nfft)
-            o[0][lo:hi] = pdf_c
-            o[1][lo:hi] = odf_c
-            o[2][lo:hi] = vecs_c
-            o[3][lo:hi] = qa_c
-            o[4] = torch.maximum(o[4], odfmean.max())
-    t0 = stage("chunks", t0, devs)
+            rows, d = part[0].shape[0], part[1]
+            f32 = dict(dtype=torch.float32, device=d)
+            # the QA normaliser stays on the device: no host sync per chunk
+            outs.append([torch.empty((rows, nq), **f32),
+                         torch.empty((rows, nvert), **f32),
+                         torch.empty((rows, NPEAK, 3), **f32),
+                         torch.empty((rows, NPEAK), **f32),
+                         torch.zeros((), **f32)])
+        longest = max(p[0].shape[0] for p in parts if p is not None)
+        for lo in range(0, longest, per_dev):
+            for part, o in zip(parts, outs):
+                if part is None or lo >= part[0].shape[0]:
+                    continue
+                sig, d = part
+                hi = min(lo + per_dev, sig.shape[0])
+                pdf_c, odf_c, vecs_c, qa_c, odfmean = _dsi_kernel(
+                    sig[lo:hi].to(d), *args[d], nfft=nfft)
+                o[0][lo:hi] = pdf_c
+                o[1][lo:hi] = odf_c
+                o[2][lo:hi] = vecs_c
+                o[3][lo:hi] = qa_c
+                o[4] = torch.maximum(o[4], odfmean.max())
+    with lap(timings, "dsi.finalize", devs):
+        # global QA normalisation (reference: src/dsi.jl:263-267)
+        local = [o for o in outs if o is not None]
+        maxes = [o[4] for o in local]
+        if mesh is not None:
+            maxes = shard_max(maxes, mesh)
+        for o, odfmax in zip(local, maxes):
+            o[3] = torch.where(odfmax > 0,
+                               o[3] / torch.clamp_min(odfmax, 1e-30), o[3])
+        if mesh is None:
+            pdf_b, odf_b, vecs_b, qa_b = outs[0][:4]
+        else:
+            pdf_b, odf_b, vecs_b, qa_b = (
+                ShardedRows([None if o is None else o[k] for o in outs], mesh,
+                            real.rows) for k in range(4))
+        shape3 = mask.vol.shape[:3]
 
-    # global QA normalisation (reference: src/dsi.jl:263-267)
-    local = [o for o in outs if o is not None]
-    maxes = [o[4] for o in local]
-    if mesh is not None:
-        maxes = shard_max(maxes, mesh)
-    for o, odfmax in zip(local, maxes):
-        o[3] = torch.where(odfmax > 0, o[3] / torch.clamp_min(odfmax, 1e-30),
-                           o[3])
-    if mesh is None:
-        pdf_b, odf_b, vecs_b, qa_b = outs[0][:4]
-    else:
-        pdf_b, odf_b, vecs_b, qa_b = (
-            ShardedRows([None if o is None else o[k] for o in outs], mesh,
-                        real.rows) for k in range(4))
-    shape3 = mask.vol.shape[:3]
+        def lazy(values, nframes):
+            out = MRI.like(mask, nframes, np.float32)
+            out.vol = LazyVolume(values, idx, shape3, nframes)
+            return out
 
-    def lazy(values, nframes):
-        out = MRI.like(mask, nframes, np.float32)
-        out.vol = LazyVolume(values, idx, shape3, nframes)
-        return out
-
-    peak = [lazy(vecs_b[:, ip, :], 3) for ip in range(NPEAK)]
-    qa = [lazy(qa_b[:, ip], 1) for ip in range(NPEAK)]
-    out = DSI(pdf=lazy(pdf_b, nq), odf=lazy(odf_b, nvert), peak=peak, qa=qa,
-              _peak_dev=DevicePeaks(vecs=vecs_b, amp=qa_b, idx=idx,
-                                    ref=mask))
-    stage("finalize", t0, devs)
+        peak = [lazy(vecs_b[:, ip, :], 3) for ip in range(NPEAK)]
+        qa = [lazy(qa_b[:, ip], 1) for ip in range(NPEAK)]
+        out = DSI(pdf=lazy(pdf_b, nq), odf=lazy(odf_b, nvert), peak=peak,
+                  qa=qa, _peak_dev=DevicePeaks(vecs=vecs_b, amp=qa_b, idx=idx,
+                                        ref=mask))
     return out
 
 

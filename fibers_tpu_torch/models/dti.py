@@ -17,10 +17,12 @@ import numpy as np
 import torch
 
 from ..core.mri import MRI
+from ..device import fetch
 from ..io.dispatch import mri_write_struct
 from ..ops.eig3 import eigh3
 from ..ops.masked import scatter_frames
 from ..parallel.mesh import ShardedRows
+from ..utils.profiling import span
 
 __all__ = ["DTI", "adc_fit", "dti_fit", "dti_fit_ls", "dti_maps", "dti_write"]
 
@@ -225,7 +227,8 @@ def dti_fit_ls(dwi: MRI, mask: MRI, batch=None, device=None) -> DTI:
         _design_dti(np.asarray(dwi.bval, np.float32),
                     np.asarray(dwi.bvec, np.float32)))
     arr = _per_shard(_dti_kernel, batch.signals, A, ib0)[:batch.n]
-    arr = arr.cpu().numpy()
+    with span("dti.fetch"):
+        arr = fetch(arr)
 
     shape3 = mask.vol.shape[:3]
 
@@ -236,7 +239,8 @@ def dti_fit_ls(dwi: MRI, mask: MRI, batch=None, device=None) -> DTI:
                                batch.idx, shape3)
         return m
 
-    return DTI(**{name: vol(name) for name in _DTI_COLS})
+    with span("dti.scatter"):
+        return DTI(**{name: vol(name) for name in _DTI_COLS})
 
 
 def dti_write(dti: DTI, basename: str) -> None:

@@ -28,6 +28,7 @@ from ..io.dispatch import mri_write_struct
 from ..ops.kernels.gqi_fused import NPEAK, gqi_fused
 from ..ops.peaks import build_neighbors, peak_mask
 from ..parallel.mesh import ShardedRows, shard_max
+from ..utils.profiling import span
 
 __all__ = ["GQI", "gqi_rec", "gqi_write", "find_peaks", "gqi_design"]
 
@@ -156,12 +157,6 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         from ..core import odf as _odf
         odf_dirs = _odf.sphere_642
 
-    nvert = odf_dirs.nvert_half
-    A = gqi_design(np.asarray(dwi.bval, np.float32),
-                   np.asarray(dwi.bvec, np.float32), odf_dirs, sigma)
-    _, verts_first, faces0 = half_sphere(odf_dirs)
-    nbr, nbr_ok = build_neighbors(faces0, nvert)
-
     if batch is None:
         from ..core.batch import prepare_batch
         batch = prepare_batch(dwi, mask, device=device)
@@ -171,14 +166,22 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     if impl == "kernel" and dev.type != "cuda":
         raise ValueError(f"gqi_rec(impl='kernel') needs a CUDA batch, got "
                          f"one on {dev}")
-    if isinstance(signals, ShardedRows):
+    nvert = odf_dirs.nvert_half
+    sharded = isinstance(signals, ShardedRows)
+    with span("gqi.tables"):
+        A = gqi_design(np.asarray(dwi.bval, np.float32),
+                       np.asarray(dwi.bvec, np.float32), odf_dirs, sigma)
+        _, verts_first, faces0 = half_sphere(odf_dirs)
+        nbr, nbr_ok = build_neighbors(faces0, nvert)
+        if not sharded:
+            vf = torch.from_numpy(np.ascontiguousarray(verts_first)).to(dev)
+            nb = torch.from_numpy(nbr).to(dev)
+            ok = torch.from_numpy(nbr_ok).to(dev)
+            A_t = torch.from_numpy(np.ascontiguousarray(A.T)).to(dev)
+    if sharded:
         odf_b, vecs_b, qa_b = _gqi_sharded(signals, A.T, verts_first, nbr,
                                            nbr_ok)
     else:
-        vf = torch.from_numpy(np.ascontiguousarray(verts_first)).to(dev)
-        nb = torch.from_numpy(nbr).to(dev)
-        ok = torch.from_numpy(nbr_ok).to(dev)
-        A_t = torch.from_numpy(np.ascontiguousarray(A.T)).to(dev)
         odf_b, vecs_b, qa_b, _ = _gqi_kernel_fused(signals, A_t, vf, nb, ok)
 
     # every large output stays on the device: the volumes materialize on

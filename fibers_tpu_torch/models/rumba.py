@@ -32,7 +32,6 @@ Canales-Rodriguez et al. (2015), PLoS ONE 10(10):e0138910.
 from __future__ import annotations
 
 import os
-import time
 import warnings
 from dataclasses import dataclass
 from typing import List
@@ -60,6 +59,7 @@ from ..parallel.mesh import (ShardedRows, _move, as_mesh, components_to_rows,
                              put_batch, replicate, rows_to_components,
                              shard_sum)
 from ..utils.coords import ang2rot, cart2sph
+from ..utils.profiling import lap, span
 
 __all__ = ["RUMBASD", "rumba_rec", "rumba_write", "rumba_peaks",
            "tensor_model", "besseli_ratio", "PaceAbortError"]
@@ -605,18 +605,6 @@ def _signal_wire(flat, idx, ib0, quantize, device, mesh=None):
     return place_rows(host, decoder(quantize, scale, ncol), device, mesh)
 
 
-def _lap(timings, name, t0, devs):
-    """Store the wall seconds since `t0` under `name` in `timings` (after
-    synchronizing the devices `devs`) when `timings` is a dict; return a
-    new t0."""
-    if timings is not None:
-        for d in devs:
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        timings[name] = time.perf_counter() - t0
-    return time.perf_counter()
-
-
 def _load_checkpoint(path, nmask, ncomp, niter, n_rows, lam0, shape3,
                      tv_shape3, tv_lo, tv_nxyz):
     """Host arrays (fodf [n_rows, ncomp], sig2 [n_rows, 1], lam on the TV
@@ -765,173 +753,190 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         from ..core import odf as _odf
         odf_dirs = _odf.sphere_724
 
-    t0 = time.perf_counter()
-    shape3 = tuple(int(s) for s in mask.vol.shape[:3])
-    idx = batch.idx if batch is not None else mask_indices(mask.vol)
-    nmask = len(idx)
+    with lap(timings, "rumba.signal") as stage:
+        shape3 = tuple(int(s) for s in mask.vol.shape[:3])
+        idx = batch.idx if batch is not None else mask_indices(mask.vol)
+        nmask = len(idx)
 
-    bval = np.asarray(dwi.bval, np.float32)
-    bvec = np.asarray(dwi.bvec, np.float32)
-    kernel, ib0 = _build_kernel(bval, bvec, odf_dirs, lam_para, lam_perp,
-                                lam_csf, lam_gm)
-    ndir, ncomp = kernel.shape
-    nvert = ncomp - 2
+        bval = np.asarray(dwi.bval, np.float32)
+        bvec = np.asarray(dwi.bvec, np.float32)
+        kernel, ib0 = _build_kernel(bval, bvec, odf_dirs, lam_para,
+                                    lam_perp, lam_csf, lam_gm)
+        ndir, ncomp = kernel.shape
+        nvert = ncomp - 2
 
-    # TV runs on the mask bounding box + halo, not the full volume
-    tv_shape3, tv_nxyz, idx_tv, tv_lo = _tv_bbox(idx, shape3)
+        # TV runs on the mask bounding box + halo, not the full volume
+        tv_shape3, tv_nxyz, idx_tv, tv_lo = _tv_bbox(idx, shape3)
 
-    # the mesh of a sharded batch; a one-device mesh runs unsharded there
-    if mesh is None and batch is not None:
-        mesh = batch.mesh
-    if mesh is not None and mesh.size == 1:
-        device, mesh = mesh.flat_devices[0], None
+        # the mesh of a sharded batch; a one-device mesh runs unsharded
+        # there
+        if mesh is None and batch is not None:
+            mesh = batch.mesh
+        if mesh is not None and mesh.size == 1:
+            device, mesh = mesh.flat_devices[0], None
 
-    # Signal matrix: average b0 first, then DWIs, normalised by b0
-    # (reference: src/rusd.jl:450-465); sharded over the mesh's data axis
-    if batch is not None:
-        sig_b = batch.signals
-        smesh = sig_b.mesh if isinstance(sig_b, ShardedRows) else None
-        signal = map_shards(_signal_from_batch, sig_b,
-                            replicate(np.flatnonzero(ib0), smesh,
-                                      sig_b.device),
-                            replicate(np.flatnonzero(~ib0), smesh,
-                                      sig_b.device))
-        if mesh is not None and not isinstance(signal, ShardedRows):
-            signal = put_batch(signal.cpu().numpy(), mesh)
-    else:
-        vol = np.asarray(dwi.vol)
-        flat = vol.reshape(-1, vol.shape[3])
-        dev0 = resolve(device) if mesh is None else mesh.data_devices[0]
-        if dev0.type == "cuda" and signal_wire == "f32":
-            signal = _signal_f32(flat, idx, ib0, dev0, mesh)
-        elif dev0.type == "cuda":
-            signal = _signal_wire(flat, idx, ib0, signal_wire, dev0, mesh)
+        # Signal matrix: average b0 first, then DWIs, normalised by b0
+        # (reference: src/rusd.jl:450-465); sharded over the mesh's data
+        # axis
+        if batch is not None:
+            sig_b = batch.signals
+            smesh = sig_b.mesh if isinstance(sig_b, ShardedRows) else None
+            signal = map_shards(_signal_from_batch, sig_b,
+                                replicate(np.flatnonzero(ib0), smesh,
+                                          sig_b.device),
+                                replicate(np.flatnonzero(~ib0), smesh,
+                                          sig_b.device))
+            if mesh is not None and not isinstance(signal, ShardedRows):
+                signal = put_batch(signal.cpu().numpy(), mesh)
         else:
-            host = _signal_host(flat, idx, ib0)
-            signal = upload(host, dev0) if mesh is None else \
-                put_batch(host, mesh)
-    n_rows = signal.shape[0]
-    dev = signal.device
-    devs = [dev] if mesh is None else mesh.distinct_devices()
-
-    t0 = _lap(timings, "signal", t0, devs)
-    nbr, nbr_ok = _angular_neighbors(odf_dirs)
-    half_verts = odf_dirs.vertices[:nvert].astype(np.float32)
-
-    # Initialisation (reference: src/rusd.jl:522-537)
-    fodf0 = np.full(ncomp, 1.0 / ncomp, np.float32)
-    lam0 = (1.0 / 15) ** 2
-
-    def rows_of(row):
-        return map_shards(lambda s: torch.from_numpy(row).to(s.device).expand(
-            s.shape[0], len(row)).clone(), signal)
-
-    kernel_d = replicate(kernel, mesh, dev)
-    # rl_gemm's planes of the kernel and its transpose, once per device
-    packs = _pack_products(kernel_d, precision) if mesh is None else {
-        d: _pack_products(k, precision) for d, k in kernel_d.items()}
-    fodf = rows_of(fodf0)
-    dodf = rows_of(kernel @ fodf0)
-    sig2 = rows_of(np.full(1, lam0, np.float32))
-    lam_flat = replicate(np.full(tv_nxyz, lam0, np.float32), mesh, dev)
-    idx_d = replicate(idx_tv, mesh, dev)
-
-    it_start = 0
-    if checkpoint_path is not None and os.path.isfile(checkpoint_path):
-        try:
-            fodf_h, sig2_h, lam_h, it_ck = _load_checkpoint(
-                checkpoint_path, nmask, ncomp, niter, n_rows, lam0, shape3,
-                tv_shape3, tv_lo, tv_nxyz)
-        except Exception:
-            # a truncated or corrupt npz raises BadZipFile/OSError and a
-            # missing key KeyError: all mean "unusable", which is what
-            # on_mismatch='fresh' exists to survive
-            if on_mismatch == "raise":
-                raise
-            warnings.warn(
-                f"checkpoint {checkpoint_path} does not match this problem "
-                "or is unreadable; starting fresh (on_mismatch='fresh')",
-                stacklevel=2)
-        else:
-            if mesh is None:
-                fodf = torch.from_numpy(fodf_h).to(dev)
-                sig2 = torch.from_numpy(sig2_h).to(dev)
+            vol = np.asarray(dwi.vol)
+            flat = vol.reshape(-1, vol.shape[3])
+            dev0 = resolve(device) if mesh is None else \
+                mesh.data_devices[0]
+            if dev0.type == "cuda" and signal_wire == "f32":
+                signal = _signal_f32(flat, idx, ib0, dev0, mesh)
+            elif dev0.type == "cuda":
+                signal = _signal_wire(flat, idx, ib0, signal_wire, dev0,
+                                      mesh)
             else:
-                fodf, sig2 = put_batch(fodf_h, mesh), put_batch(sig2_h, mesh)
-            lam_flat = replicate(lam_h, mesh, dev)
-            dodf = map_shards(lambda f, k: torch.matmul(f, k.T), fodf,
-                              kernel_d)
-            it_start = it_ck
-            print(f"Resuming RUMBA-SD from iteration {it_start} "
-                  f"({checkpoint_path})")
-    dodf_sig = map_shards(lambda s, d, s2: (s * d) / s2, signal, dodf, sig2)
+                host = _signal_host(flat, idx, ib0)
+                signal = upload(host, dev0) if mesh is None else \
+                    put_batch(host, mesh)
+        n_rows = signal.shape[0]
+        dev = signal.device
+        devs = [dev] if mesh is None else mesh.distinct_devices()
+        stage.devs = devs
 
-    tabs = tv_buf = mesh_tv = x = None
-    if use_tv and mesh is None:
-        tv_buf = torch.ones((n_rows, ncomp), dtype=torch.float32,
-                            device=dev)
-        tabs = build_tables(idx_tv, tv_shape3, dev)
-    elif use_tv:
-        mesh_tv = _MeshTV.build(mesh, idx_tv, tv_shape3, n_rows, ncomp,
-                                tv_bf16)
+    with lap(timings, "rumba.iterate", devs):
+        with span("rumba.init"):
+            nbr, nbr_ok = _angular_neighbors(odf_dirs)
+            half_verts = odf_dirs.vertices[:nvert].astype(np.float32)
 
-    # Iterate (verbose prints the per-iteration SNR like the reference,
-    # reference: src/rusd.jl:543-556); each iteration hands the next its
-    # x, the first computes it from dodf_sig
-    for it in range(it_start + 1, niter + 1):
-        if mesh is None:
-            fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step(
-                fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
-                idx_d, n_order, ipat_factor, use_tv, tv_shape3, precision,
-                tv_bf16, tabs=tabs, tv_buf=tv_buf, x=x, packs=packs)
-        else:
-            fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step_sharded(
-                fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
-                idx_d, n_order, ipat_factor, use_tv, mesh_tv, precision, x,
-                packs)
-        if verbose:
-            sm_d, ss_d = _snr_stats(sig2, nmask)
-            ss = float(ss_d) if nmask > 1 else 0.0
-            print(f"Iteration {it} of {niter}")
-            print(f"Estimated mean SNR (s0/sigma) = {float(sm_d)} (+-) {ss}")
-        if (checkpoint_path is not None and checkpoint_every > 0
-                and it % checkpoint_every == 0 and it < niter):
-            tmp = checkpoint_path + ".tmp.npz"
-            lam_h = lam_flat if mesh is None else next(iter(lam_flat.values()))
-            np.savez(tmp, fodf=fodf.cpu().numpy(), sig2=sig2.cpu().numpy(),
-                     lam_flat=lam_h.cpu().numpy(), iteration=it,
-                     nmask=nmask, ncomp=ncomp, niter=niter, version=2,
-                     n_rows=n_rows, tv_lo=np.asarray(tv_lo),
-                     tv_shape3=np.asarray(tv_shape3))
-            os.replace(tmp, checkpoint_path)
+            # Initialisation (reference: src/rusd.jl:522-537)
+            fodf0 = np.full(ncomp, 1.0 / ncomp, np.float32)
+            lam0 = (1.0 / 15) ** 2
 
-    t0 = _lap(timings, "iterate", t0, devs)
-    # the iteration's row state is not needed past here: free it before
-    # the post stage's temporaries
-    del signal, dodf, dodf_sig, x, tv_buf
-    sm_d, ss_d = _snr_stats(sig2, nmask)
-    snr_mean = float(sm_d)
-    snr_std = float(ss_d) if nmask > 1 else 0.0
+            def rows_of(row):
+                return map_shards(
+                    lambda s: torch.from_numpy(row).to(s.device).expand(
+                        s.shape[0], len(row)).clone(), signal)
 
-    # Energy normalisation + iso embedding + GFA + peaks, on the device(s)
-    # (reference: src/rusd.jl:560-633)
-    fodf_full, fgm_d, fcsf_d, f_iso_d, gfa_d = map_shards(
-        lambda f: _rumba_post(f, nvert), fodf)
-    vecs_d = map_shards(
-        lambda ff, fi, hv, nb, ok: _rumba_peaks_kernel(ff, fi, hv, nb, ok,
-                                                       FTHRESH),
-        fodf_full, f_iso_d, replicate(half_verts, mesh, dev),
-        replicate(nbr.astype(np.int64), mesh, dev),
-        replicate(nbr_ok, mesh, dev))
+            kernel_d = replicate(kernel, mesh, dev)
+            # rl_gemm's planes of the kernel and its transpose, once per
+            # device
+            packs = _pack_products(kernel_d, precision) if mesh is None \
+                else {d: _pack_products(k, precision)
+                      for d, k in kernel_d.items()}
+            fodf = rows_of(fodf0)
+            dodf = rows_of(kernel @ fodf0)
+            sig2 = rows_of(np.full(1, lam0, np.float32))
+            lam_flat = replicate(np.full(tv_nxyz, lam0, np.float32), mesh,
+                                 dev)
+            idx_d = replicate(idx_tv, mesh, dev)
 
-    # every large output stays on the device until host code reads it
-    def vol_of(values, nframes):
-        m = MRI.like(mask, nframes, np.float32)
-        m.vol = LazyVolume(values, idx, shape3, nframes)
-        return m
+            it_start = 0
+            if checkpoint_path is not None and \
+                    os.path.isfile(checkpoint_path):
+                try:
+                    fodf_h, sig2_h, lam_h, it_ck = _load_checkpoint(
+                        checkpoint_path, nmask, ncomp, niter, n_rows, lam0,
+                        shape3, tv_shape3, tv_lo, tv_nxyz)
+                except Exception:
+                    # a truncated or corrupt npz raises BadZipFile/OSError
+                    # and a missing key KeyError: all mean "unusable",
+                    # which is what on_mismatch='fresh' exists to survive
+                    if on_mismatch == "raise":
+                        raise
+                    warnings.warn(
+                        f"checkpoint {checkpoint_path} does not match this "
+                        "problem or is unreadable; starting fresh "
+                        "(on_mismatch='fresh')", stacklevel=2)
+                else:
+                    if mesh is None:
+                        fodf = torch.from_numpy(fodf_h).to(dev)
+                        sig2 = torch.from_numpy(sig2_h).to(dev)
+                    else:
+                        fodf = put_batch(fodf_h, mesh)
+                        sig2 = put_batch(sig2_h, mesh)
+                    lam_flat = replicate(lam_h, mesh, dev)
+                    dodf = map_shards(lambda f, k: torch.matmul(f, k.T), fodf,
+                                      kernel_d)
+                    it_start = it_ck
+                    print(f"Resuming RUMBA-SD from iteration {it_start} "
+                          f"({checkpoint_path})")
+            dodf_sig = map_shards(lambda s, d, s2: (s * d) / s2, signal,
+                                  dodf, sig2)
 
-    unit_d, amp_d = map_shards(split_unit_amp, vecs_d)
-    _lap(timings, "post", t0, devs)
+            tabs = tv_buf = mesh_tv = x = None
+            if use_tv and mesh is None:
+                tv_buf = torch.ones((n_rows, ncomp), dtype=torch.float32,
+                                    device=dev)
+                tabs = build_tables(idx_tv, tv_shape3, dev)
+            elif use_tv:
+                mesh_tv = _MeshTV.build(mesh, idx_tv, tv_shape3, n_rows,
+                                        ncomp, tv_bf16)
+
+        # Iterate (verbose prints the per-iteration SNR like the reference,
+        # reference: src/rusd.jl:543-556); each iteration hands the next its
+        # x, the first computes it from dodf_sig
+        for it in range(it_start + 1, niter + 1):
+            if mesh is None:
+                fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step(
+                    fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
+                    idx_d, n_order, ipat_factor, use_tv, tv_shape3, precision,
+                    tv_bf16, tabs=tabs, tv_buf=tv_buf, x=x, packs=packs)
+            else:
+                fodf, dodf, dodf_sig, sig2, lam_flat, _, x = \
+                    _rumba_step_sharded(
+                        fodf, dodf, dodf_sig, sig2, lam_flat, signal,
+                        kernel_d, idx_d, n_order, ipat_factor, use_tv,
+                        mesh_tv, precision, x, packs)
+            if verbose:
+                sm_d, ss_d = _snr_stats(sig2, nmask)
+                ss = float(ss_d) if nmask > 1 else 0.0
+                print(f"Iteration {it} of {niter}")
+                print(f"Estimated mean SNR (s0/sigma) = {float(sm_d)} "
+                      f"(+-) {ss}")
+            if (checkpoint_path is not None and checkpoint_every > 0
+                    and it % checkpoint_every == 0 and it < niter):
+                tmp = checkpoint_path + ".tmp.npz"
+                lam_h = lam_flat if mesh is None else \
+                    next(iter(lam_flat.values()))
+                np.savez(tmp, fodf=fodf.cpu().numpy(),
+                         sig2=sig2.cpu().numpy(),
+                         lam_flat=lam_h.cpu().numpy(), iteration=it,
+                         nmask=nmask, ncomp=ncomp, niter=niter, version=2,
+                         n_rows=n_rows, tv_lo=np.asarray(tv_lo),
+                         tv_shape3=np.asarray(tv_shape3))
+                os.replace(tmp, checkpoint_path)
+
+    with lap(timings, "rumba.post", devs):
+        # the iteration's row state is not needed past here: free it before
+        # the post stage's temporaries
+        del signal, dodf, dodf_sig, x, tv_buf
+        sm_d, ss_d = _snr_stats(sig2, nmask)
+        snr_mean = float(sm_d)
+        snr_std = float(ss_d) if nmask > 1 else 0.0
+
+        # Energy normalisation + iso embedding + GFA + peaks, on the
+        # device(s)
+        # (reference: src/rusd.jl:560-633)
+        fodf_full, fgm_d, fcsf_d, f_iso_d, gfa_d = map_shards(
+            lambda f: _rumba_post(f, nvert), fodf)
+        vecs_d = map_shards(
+            lambda ff, fi, hv, nb, ok: _rumba_peaks_kernel(
+                ff, fi, hv, nb, ok, FTHRESH),
+            fodf_full, f_iso_d, replicate(half_verts, mesh, dev),
+            replicate(nbr.astype(np.int64), mesh, dev),
+            replicate(nbr_ok, mesh, dev))
+
+        # every large output stays on the device until host code reads it
+        def vol_of(values, nframes):
+            m = MRI.like(mask, nframes, np.float32)
+            m.vol = LazyVolume(values, idx, shape3, nframes)
+            return m
+
+        unit_d, amp_d = map_shards(split_unit_amp, vecs_d)
     return RUMBASD(
         fodf=vol_of(fodf_full, nvert),
         fgm=vol_of(fgm_d, 1),

@@ -24,6 +24,7 @@ from ..core.lazy import LazyArray
 from ..device import resolve
 from ..ops.eig3 import eigh3
 from ..parallel.mesh import _move, as_mesh
+from ..utils.profiling import span
 
 __all__ = ["st_recon", "st_eigen"]
 
@@ -185,16 +186,17 @@ def st_recon(vol: np.ndarray, sigma: float, rho: float, lazy: bool = False,
     runs unsharded on the mesh's first device, as the reference does.
     The lazy outputs are joined on the first device.
     """
-    mesh = as_mesh(mesh)
-    v = np.array(vol, np.float32)
-    if v.ndim == 4:
-        v = v[..., 0]
-    sigma, rho = float(sigma), float(rho)
-    if mesh is not None:
-        evecs, evals = _st_sharded(v, sigma, rho, mesh)
-    else:
-        evecs, evals = _st_kernel(torch.from_numpy(v).to(resolve(device)),
-                                  sigma, rho)
-    if lazy:
-        return LazyArray(evecs), LazyArray(evals)
-    return evecs.cpu().numpy(), evals.cpu().numpy()
+    with span("structens.recon"):
+        mesh = as_mesh(mesh)
+        v = np.array(vol, np.float32)
+        if v.ndim == 4:
+            v = v[..., 0]
+        sigma, rho = float(sigma), float(rho)
+        if mesh is not None:
+            evecs, evals = _st_sharded(v, sigma, rho, mesh)
+        else:
+            evecs, evals = _st_kernel(
+                torch.from_numpy(v).to(resolve(device)), sigma, rho)
+        if lazy:
+            return LazyArray(evecs), LazyArray(evals)
+        return evecs.cpu().numpy(), evals.cpu().numpy()

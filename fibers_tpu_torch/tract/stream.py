@@ -55,6 +55,7 @@ from ..ops.kernels.propagate import _flat_index, propagate_pair
 from ..parallel.mesh import as_mesh, as_tensor, pad_to_multiple
 from ..utils.hostbuf import scratch
 from ..utils.prng import prng_key, uniform
+from ..utils.profiling import count, span
 
 __all__ = ["stream", "StreamConfig", "StreamWork", "stream_new_line",
            "stream_new_point", "stream_micro_new_point", "propagate_chunk",
@@ -346,9 +347,11 @@ def _wire_mode(cfg, step_size):
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """Device tensor -> numpy, through pinned memory for a CUDA tensor."""
+    """Device tensor -> numpy, through pinned memory for a CUDA tensor
+    (its bytes counted as `transfer.d2h_bytes`)."""
     if t.device.type != "cuda":
         return t.numpy()
+    count("transfer.d2h_bytes", t.nbytes)
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     torch.cuda.current_stream(t.device).synchronize()
@@ -421,7 +424,8 @@ def _chunk_lines(launch, starts, len_min, mode, has_scalars):
         parts = out if isinstance(out, list) else [out]
         del out
         for k in range(len(parts)):
-            lines = _fetch_lines(parts[k], len_min, mode, has_scalars)
+            with span("stream.fetch"):
+                lines = _fetch_lines(parts[k], len_min, mode, has_scalars)
             parts[k] = None
             if lines is not None:
                 yield lines
@@ -497,7 +501,8 @@ class _Writer:
     def _wait_oldest(self):
         t0 = time.perf_counter()
         try:
-            self._inflight[0][0].result()
+            with span("stream.wait"):
+                self._inflight[0][0].result()
         finally:
             writer_times.stall += time.perf_counter() - t0
             self._inflight.popleft()
@@ -505,7 +510,8 @@ class _Writer:
     def _write(self, box):
         t0 = time.perf_counter()
         try:
-            _append_lines(self._args[0], *box.pop(), *self._args[1:])
+            with span("stream.write"):
+                _append_lines(self._args[0], *box.pop(), *self._args[1:])
         finally:
             writer_times.busy += time.perf_counter() - t0
 
@@ -932,8 +938,9 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     unsharded (on a mesh's first device), as in the reference.
     """
     del odf
-    work = StreamWork(ovec, f=f, fa=fa, mask=mask, cfg=cfg, device=device,
-                      **kwargs)
+    with span("stream.work"):
+        work = StreamWork(ovec, f=f, fa=fa, mask=mask, cfg=cfg,
+                          device=device, **kwargs)
     cfg = work.cfg
     wire = _wire_mode(cfg, work.step_size)
     if lcms is not None or work.domicro:
@@ -945,17 +952,18 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
         if lcms is not None:
             return stream_lcm(work, seed, lcms, wire)
         return stream_micro(work, seed, wire)
-    seed_idx = _seed_voxels(work.mask_array, seed)
-
-    # sub-voxel jitter: nsub offsets shared by all seed voxels, the same
-    # draw as the reference's jax.random.uniform (utils/prng.py)
-    if work.nsub > 0:
-        subs = uniform(prng_key(cfg.seed_rng), (work.nsub, 3),
-                       -0.5 + 1e-6, 0.5 - 1e-6)
-    else:
-        subs = np.zeros((1, 3), np.float32)
-    seeds_all = np.repeat(seed_idx.astype(np.float32), len(subs), axis=0)
-    subs_all = np.tile(subs, (len(seed_idx), 1))
+    with span("stream.work"):
+        seed_idx = _seed_voxels(work.mask_array, seed)
+        # sub-voxel jitter: nsub offsets shared by all seed voxels, the
+        # same draw as the reference's jax.random.uniform (utils/prng.py)
+        if work.nsub > 0:
+            subs = uniform(prng_key(cfg.seed_rng), (work.nsub, 3),
+                           -0.5 + 1e-6, 0.5 - 1e-6)
+        else:
+            subs = np.zeros((1, 3), np.float32)
+        seeds_all = np.repeat(seed_idx.astype(np.float32), len(subs),
+                              axis=0)
+        subs_all = np.tile(subs, (len(seed_idx), 1))
 
     ref = mask if mask is not None else work.ovecs[0]
     tr = Tract.from_ref(ref)

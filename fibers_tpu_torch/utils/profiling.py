@@ -1,104 +1,215 @@
-"""Lightweight stage profiling.
+"""The port's tracer: named spans and counters at the host stages of the
+fits, the tractography and the writer.
 
-The reference's only instrumentation is ad-hoc @time prints inside the
-RUMBA loop (reference: src/rusd.jl:282,542,545).  Here: a context-manager
-stage timer with a summary table (fibers_tpu/utils/profiling.py without
-its device-trace wrapper; device traces come from torch.profiler).
+    from fibers_tpu_torch.utils import profiling
+    with profiling.collect() as rec:
+        ...                                   # any calls into the package
+    rec.spans["dti.fetch"].self_s             # seconds, summed over calls
+    rec.counters["transfer.d2h_bytes"]
+
+Tracing is off unless `collect()` is open.  Off, `span(name)` is one
+test of a module-level flag and returns a shared no-op context, and
+`count` is one test: nothing is allocated and no clock is read.  On, for
+every thread of the process, a span adds to its name's aggregate
+(`SpanStats`: calls, total seconds, self seconds, the names of the spans
+it ran inside) and a counter to its sum; memory stays bounded by the
+number of names.  A span times the host, its blocking waits included,
+and never synchronizes a device: a span that ends in a copy to the host
+holds the host's wait for the work queued before it.
+
+When a `torch.profiler` session records on the calling thread, each span
+is also a `record_function` range named `fibers.<name>`, so it sits in
+the profiler's trace on the same clock as the device's kernels and
+copies.  With CUDA activity the profiler also draws each such range on
+the device's timeline (a user annotation, under the same name): a reader
+of device busy time skips `fibers.` events there.  The profiler does not
+see the .trk writer thread: its spans go to the record only.
+
+The spans (each covers the host work named, its waits included):
+
+- `batch.gather`   `prepare_batch`: the pinned buffer and the row gather
+- `dti.fetch`      `dti_fit`: the fit's result to the host (the wait for
+                   the fit and the copy)
+- `dti.scatter`    `dti_fit`: the ten host volumes, allocated and scattered
+- `gqi.tables`     `gqi_rec`: the design matrix, half sphere and
+                   neighbour tables, and their uploads
+- `lazy.fetch`     a lazy volume's or array's copy to the host
+- `lazy.scatter`   a lazy volume's scatter into its host volume
+- `rumba.signal`, `rumba.iterate`, `rumba.post`
+                   `rumba_rec`'s stages, as its `timings=` keys
+- `rumba.init`     inside `rumba.iterate`: the angular neighbours, the
+                   products' packed operands, the start rows, TV tables
+- `dsi.upload`, `dsi.chunks`, `dsi.finalize`
+                   `dsi_rec`'s stages, as its `timings=` keys
+- `structens.recon` `st_recon`, the whole call
+- `stream.work`    `stream`: the orientation field and the seed arrays
+- `stream.fetch`   a seed chunk's kept lines to the host: the counts copy,
+                   the compaction, the lines copy
+- `stream.wait`    the chunk loop waiting on the .trk writer thread
+- `stream.write`   the .trk writer thread: decode, pack, file write
+
+Counters: `transfer.d2h_bytes`, the bytes copied from a CUDA device at
+`dti.fetch`, `lazy.fetch` and `stream.fetch`; `trk.bytes`, the bytes a
+`TrkSink` writes (header and records: the file's size).
 """
 
 from __future__ import annotations
 
-import os
+import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Set
 
-__all__ = ["StageTimer", "prof", "prof_enabled", "prof_summary",
-           "prof_reset"]
+import torch
+
+__all__ = ["span", "count", "collect", "lap", "Record", "SpanStats"]
+
+PREFIX = "fibers."
+
+_on = False          # set by collect(): the one test an off call makes
+_record: Optional["Record"] = None
+_local = threading.local()
 
 
-class StageTimer:
-    """Accumulates wall-clock per named stage.
+@dataclass
+class SpanStats:
+    """One span name's aggregate: calls, total and self seconds (total
+    less the time of the spans that ran inside it on its thread), and the
+    names of the spans it ran inside (None: none)."""
 
-    >>> t = StageTimer()
-    >>> with t("gather"): ...
-    >>> with t("fit"): ...
-    >>> print(t.summary())
-    """
+    calls: int = 0
+    total_s: float = 0.0
+    self_s: float = 0.0
+    parents: Set[Optional[str]] = field(default_factory=set)
+
+
+class Record:
+    """What one `collect()` saw: `spans` {name: SpanStats} and `counters`
+    {name: sum}."""
 
     def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-        self.flops: Dict[str, float] = {}
-        self.order: List[str] = []
+        self.spans: Dict[str, SpanStats] = {}
+        self.counters: Dict[str, float] = {}
+        self._lock = threading.Lock()
 
-    @contextmanager
-    def __call__(self, stage: str, flops: Optional[float] = None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            if stage not in self.totals:
-                self.totals[stage] = 0.0
-                self.counts[stage] = 0
-                self.order.append(stage)
-            self.totals[stage] += dt
-            self.counts[stage] += 1
-            if flops:
-                self.flops[stage] = self.flops.get(stage, 0.0) + flops
+    def _add_span(self, name, total, own, parent):
+        with self._lock:
+            s = self.spans.get(name)
+            if s is None:
+                s = self.spans[name] = SpanStats()
+            s.calls += 1
+            s.total_s += total
+            s.self_s += own
+            s.parents.add(parent)
 
-    def summary(self) -> str:
-        total = sum(self.totals.values())
-        has_flops = bool(self.flops)
-        hdr = f"{'stage':<24}{'calls':>6}{'total s':>10}{'%':>7}"
-        if has_flops:
-            hdr += f"{'TFLOP/s':>10}"
-        lines = [hdr]
-        for s in self.order:
-            pct = 100.0 * self.totals[s] / total if total else 0.0
-            row = (f"{s:<24}{self.counts[s]:>6}"
-                   f"{self.totals[s]:>10.3f}{pct:>6.1f}%")
-            if has_flops:
-                fl = self.flops.get(s)
-                row += (f"{fl / self.totals[s] / 1e12:>10.2f}"
-                        if fl and self.totals[s] > 0 else f"{'':>10}")
-            lines.append(row)
-        lines.append(f"{'TOTAL':<24}{'':>6}{total:>10.3f}")
-        return "\n".join(lines)
+    def _add_count(self, name, n):
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + n
 
 
-# ------------------------------------------------------------------ #
-# Global env-gated profiler: FIBERS_PROFILE=1 turns every `prof(...)`
-# block across models/tract/io into an accumulating stage timer, so any
-# bench tail is self-attributing.
-# ------------------------------------------------------------------ #
+class _Off:
+    """The shared context of a span while tracing is off."""
 
-_GLOBAL = StageTimer()
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
 
 
-def prof_enabled() -> bool:
-    return os.environ.get("FIBERS_PROFILE") == "1"
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "rec", "parent", "child_s", "range", "t0")
+
+    def __init__(self, name, rec):
+        self.name, self.rec = name, rec
+
+    def __enter__(self):
+        stack = _local.__dict__.setdefault("stack", [])
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        self.child_s = 0.0
+        self.range = None
+        if torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(PREFIX + self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _local.stack.pop()
+        parent = self.parent
+        if parent is not None:
+            parent.child_s += dt
+        self.rec._add_span(self.name, dt, dt - self.child_s,
+                           None if parent is None else parent.name)
+        return False
+
+
+def span(name: str):
+    """A context that times the enclosed host work as `name` while
+    `collect()` is open, and does nothing otherwise."""
+    if not _on:
+        return _OFF
+    return _Span(name, _record)
+
+
+def count(name: str, n) -> None:
+    """Add `n` to the counter `name` while `collect()` is open."""
+    if _on:
+        _record._add_count(name, n)
 
 
 @contextmanager
-def prof(stage: str, flops: Optional[float] = None):
-    """Time a named stage into the global profiler (no-op unless
-    FIBERS_PROFILE=1).  Callers should block_until_ready inside the block
-    when attributing device work.  `flops` (raw FLOPs executed inside
-    the block) adds an achieved-TFLOP/s column to the summary."""
-    if not prof_enabled():
-        yield
-        return
-    with _GLOBAL(stage, flops=flops):
-        yield
+def collect():
+    """Turn tracing on, process-wide and for every thread, and yield a
+    fresh `Record` that the spans and counters fill until the block
+    ends.  Collections do not nest."""
+    global _on, _record
+    if _on:
+        raise RuntimeError("profiling.collect() is already open")
+    rec = Record()
+    _record, _on = rec, True
+    try:
+        yield rec
+    finally:
+        _on, _record = False, None
 
 
-def prof_summary() -> str:
-    return _GLOBAL.summary()
+class _Lap:
+    __slots__ = ("timings", "name", "devs", "_span", "_t0")
+
+    def __init__(self, timings, name, devs):
+        self.timings, self.name, self.devs = timings, name, devs
+
+    def __enter__(self):
+        self._span = span(self.name)
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None and self.timings is not None:
+            for d in self.devs:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            self.timings[self.name.split(".", 1)[1]] = \
+                time.perf_counter() - self._t0
+        return self._span.__exit__(*exc)
 
 
-def prof_reset() -> None:
-    _GLOBAL.totals.clear()
-    _GLOBAL.counts.clear()
-    _GLOBAL.order.clear()
+def lap(timings, name: str, devs=()):
+    """A context around one stage of a fit: the span `name`
+    ("<model>.<stage>") and, when `timings` is a dict, the stage's wall
+    seconds stored under "<stage>", taken after synchronizing the CUDA
+    devices in `devs` so that they hold the device work the stage queued.
+    A stage that learns its devices as it runs sets `devs` on the context
+    it gets from `with`."""
+    return _Lap(timings, name, devs)
