@@ -5,8 +5,20 @@ solve plus the closed-form 3x3 eigendecomposition over the whole [N, nvol]
 batch, scattered back into host volumes (reference: src/dti.jl:164-316).
 The normal-equation products are plain large matrix products, left to
 `torch.matmul` in float32 (TF32 stays off; see fibers_tpu_torch.device).
-A batch sharded over a mesh runs the same kernel once per shard; the
-rows are gathered to the host for the scatter.
+
+The result reaches the host as whole volumes (`_host_volumes`): the rows
+are scattered on their device into one zeroed buffer that holds the
+volumes back to back, the buffer comes to the host in one copy, and each
+volume is a numpy view of that copy.  From a CUDA device the copy lands
+in one pinned block of torch's caching host allocator (128 MB at the
+HCP scale: 140x140x92 voxels, 16 frames).  Every volume of a fit keeps
+the whole block alive through its `base`, so a caller who keeps any one
+volume (only `fa`, say) holds all 128 MB of pinned memory; `np.array(vol)`
+copies a volume out to keep it alone.  When the last view is dropped the
+block goes back to the pool, still page-locked, and the next fit takes it
+again without a new page-locked allocation.  A batch sharded over a mesh
+runs the same kernel once per shard; its rows are gathered onto one of
+its devices and take the same route from there.
 """
 
 from __future__ import annotations
@@ -17,12 +29,11 @@ import numpy as np
 import torch
 
 from ..core.mri import MRI
-from ..device import fetch
+from ..device import upload
 from ..io.dispatch import mri_write_struct
 from ..ops.eig3 import eigh3
-from ..ops.masked import scatter_frames
 from ..parallel.mesh import ShardedRows
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 __all__ = ["DTI", "adc_fit", "dti_fit", "dti_fit_ls", "dti_maps", "dti_write"]
 
@@ -143,10 +154,49 @@ def _adc_kernel(signals, A, ib0):
     return adc, s0
 
 
-# Column layout of the packed DTI result [N, 16]: one device->host copy
+# Column layout of the packed DTI result [N, 16], one group a volume
 _DTI_COLS = dict(s0=(0, 1), eigval1=(1, 2), eigval2=(2, 3), eigval3=(3, 4),
                  eigvec1=(4, 7), eigvec2=(7, 10), eigvec3=(10, 13),
                  rd=(13, 14), md=(14, 15), fa=(15, 16))
+_ADC_COLS = ((0, 1), (1, 2))            # [N, 2]: adc, s0
+
+
+def _host_volumes(rows, idx, shape3, cols):
+    """One host volume per column group `(lo, hi)` of the result `rows`
+    [n, ncol] at the flat voxel indices `idx`: float32, C-contiguous,
+    `shape3` for one column and `shape3 + (hi - lo,)` for more, zero
+    outside the mask.  The spans `dti.scatter` and `dti.fetch` hold the
+    work (utils/profiling.py).
+
+    The rows are scattered on their device into one zeroed buffer, each
+    group's volume a contiguous slice; the buffer comes to the host in one
+    copy (pinned from a CUDA device) and each volume is a view of it.
+    The values are copied, not computed: the volumes hold the same bits
+    as `ops.masked.scatter_frames` of the fetched rows.  A `ShardedRows`
+    result (rows on several devices) is first gathered onto one of them."""
+    nxyz = int(np.prod(shape3))
+    with span("dti.scatter"):
+        if isinstance(rows, ShardedRows):
+            rows = rows.gather()
+        idx_dev = upload(np.asarray(idx, np.int64), rows.device)
+        buf = torch.zeros(nxyz * sum(hi - lo for lo, hi in cols),
+                          dtype=rows.dtype, device=rows.device)
+        host = (torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+                if buf.is_cuda else buf)
+        flat = host.numpy()
+        vols, off = [], 0
+        for lo, hi in cols:
+            n = nxyz * (hi - lo)
+            buf[off:off + n].view(nxyz, hi - lo).index_copy_(
+                0, idx_dev, rows[:, lo:hi])
+            vols.append(flat[off:off + n].reshape(
+                shape3 + ((hi - lo,) if hi - lo > 1 else ())))
+            off += n
+    with span("dti.fetch"):
+        if host is not buf:
+            count("transfer.d2h_bytes", buf.nbytes)
+            host.copy_(buf)
+    return vols
 
 
 def _dti_kernel(signals, A, ib0):
@@ -198,13 +248,11 @@ def adc_fit(dwi: MRI, mask: MRI, batch=None, device=None):
         dwi, mask, batch, device,
         _design_adc(np.asarray(dwi.bval, np.float32)))
     both = _per_shard(lambda *a: torch.stack(_adc_kernel(*a), dim=1),
-                      batch.signals, A, ib0)[:batch.n].cpu().numpy().T
-
-    shape3 = mask.vol.shape[:3]
+                      batch.signals, A, ib0)[:batch.n]
     adc = MRI.like(mask, 1, np.float32)
     s0 = MRI.like(mask, 1, np.float32)
-    adc.vol = scatter_frames(both[0], batch.idx, shape3)
-    s0.vol = scatter_frames(both[1], batch.idx, shape3)
+    adc.vol, s0.vol = _host_volumes(both, batch.idx, mask.vol.shape[:3],
+                                    _ADC_COLS)
     return adc, s0
 
 
@@ -227,20 +275,13 @@ def dti_fit_ls(dwi: MRI, mask: MRI, batch=None, device=None) -> DTI:
         _design_dti(np.asarray(dwi.bval, np.float32),
                     np.asarray(dwi.bvec, np.float32)))
     arr = _per_shard(_dti_kernel, batch.signals, A, ib0)[:batch.n]
-    with span("dti.fetch"):
-        arr = fetch(arr)
-
-    shape3 = mask.vol.shape[:3]
-
-    def vol(name):
-        lo, hi = _DTI_COLS[name]
-        m = MRI.like(mask, hi - lo, np.float32)
-        m.vol = scatter_frames(arr[:, lo] if hi - lo == 1 else arr[:, lo:hi],
-                               batch.idx, shape3)
-        return m
-
-    with span("dti.scatter"):
-        return DTI(**{name: vol(name) for name in _DTI_COLS})
+    vols = _host_volumes(arr, batch.idx, mask.vol.shape[:3],
+                         _DTI_COLS.values())
+    out = {}
+    for (name, (lo, hi)), v in zip(_DTI_COLS.items(), vols):
+        out[name] = MRI.like(mask, hi - lo, np.float32)
+        out[name].vol = v
+    return DTI(**out)
 
 
 def dti_write(dti: DTI, basename: str) -> None:

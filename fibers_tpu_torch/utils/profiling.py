@@ -28,9 +28,12 @@ see the .trk writer thread: its spans go to the record only.
 The spans (each covers the host work named, its waits included):
 
 - `batch.gather`   `prepare_batch`: the pinned buffer and the row gather
-- `dti.fetch`      `dti_fit`: the fit's result to the host (the wait for
-                   the fit and the copy)
-- `dti.scatter`    `dti_fit`: the ten host volumes, allocated and scattered
+- `dti.scatter`    `dti_fit`, `adc_fit`: the result's scatter on its
+                   device into one zeroed buffer (launches; a mesh's
+                   rows gathered onto one device first), the host block
+                   and the volumes' views of it
+- `dti.fetch`      `dti_fit`, `adc_fit`: the scattered buffer's one copy
+                   to the host (the wait for the fit and the copy)
 - `gqi.tables`     `gqi_rec`: the design matrix, half sphere and
                    neighbour tables, and their uploads
 - `lazy.fetch`     a lazy volume's or array's copy to the host

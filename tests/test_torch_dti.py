@@ -19,8 +19,10 @@ import torch
 import fibers_tpu as ft
 import fibers_tpu_torch as tt
 from fibers_tpu.ops.eig3 import eigh3 as jax_eigh3
+from fibers_tpu_torch.models import dti as tdti
 from fibers_tpu_torch.models.dti import _design_dti
 from fibers_tpu_torch.ops.eig3 import eigh3, eigvalsh3
+from fibers_tpu_torch.ops.masked import scatter_frames
 
 from phantom import make_phantom
 
@@ -96,6 +98,86 @@ def test_adc_fit_matches_jax():
     at, st = tt.adc_fit(dwi, mask, device="cpu")
     np.testing.assert_allclose(at.vol, aj.vol, atol=1e-7, rtol=1e-4)
     np.testing.assert_allclose(st.vol, sj.vol, rtol=1e-4)
+
+
+def _holed_phantom(device, shards):
+    """The phantom, more holes in its mask, and its batch on `device`,
+    split over a mesh of `shards` copies of it when more than one."""
+    from fibers_tpu_torch.parallel.mesh import Mesh
+    dwi, mask, _, _ = make_phantom(shape=(7, 6, 5), ndir=30)
+    mask.vol[np.random.default_rng(3).random(mask.vol.shape) < 0.3] = 0
+    dev = torch.device(device)
+    mesh = (None if shards == 1 else
+            Mesh(np.array([dev] * shards, dtype=object), ("data",)))
+    return dwi, mask, tt.prepare_batch(dwi, mask, device=dev, mesh=mesh)
+
+
+def _fit_rows_and_volumes(fit, dwi, mask, batch):
+    """The fit's result rows [n, ncol] on the batch's device and its host
+    volumes, in column-group order."""
+    bval = np.asarray(dwi.bval, np.float32)
+    if fit == "dti":
+        _, A, ib0 = tdti._batch_and_tables(
+            dwi, mask, batch, None, _design_dti(bval, dwi.bvec))
+        rows = tdti._per_shard(tdti._dti_kernel, batch.signals, A, ib0)
+        d = tt.dti_fit(dwi, mask, batch=batch)
+        vols = [getattr(d, name).vol for name in tdti._DTI_COLS]
+        cols = list(tdti._DTI_COLS.values())
+    else:
+        _, A, ib0 = tdti._batch_and_tables(
+            dwi, mask, batch, None, tdti._design_adc(bval))
+        rows = tdti._per_shard(
+            lambda *a: torch.stack(tdti._adc_kernel(*a), dim=1),
+            batch.signals, A, ib0)
+        vols = [m.vol for m in tt.adc_fit(dwi, mask, batch=batch)]
+        cols = list(tdti._ADC_COLS)
+    return rows[:batch.n], batch.idx, mask.vol > 0, vols, cols
+
+
+def _assert_scattered_volumes(rows, idx, inside, vols, cols):
+    """`vols` equal `scatter_frames` of `rows` bit for bit, each a
+    C-contiguous float32 volume of the old shape, zero outside the mask."""
+    arr = rows.cpu().numpy()
+    assert len(vols) == len(cols)
+    for v, (lo, hi) in zip(vols, cols):
+        want = scatter_frames(arr[:, lo] if hi - lo == 1 else arr[:, lo:hi],
+                              idx, inside.shape)
+        assert v.shape == want.shape == inside.shape + \
+            ((hi - lo,) if hi - lo > 1 else ())
+        assert v.dtype == np.float32 and v.flags["C_CONTIGUOUS"]
+        assert np.array_equal(v.view(np.uint32), want.view(np.uint32))
+        assert not v[~inside].any() and v[inside].any()
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("fit", ["dti", "adc"])
+def test_device_scatter_equals_the_host_scatter(fit, shards):
+    _assert_scattered_volumes(
+        *_fit_rows_and_volumes(fit, *_holed_phantom("cpu", shards)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("fit", ["dti", "adc"])
+def test_device_scatter_on_card_is_pinned_and_reused(fit, shards):
+    """On the card the volumes are views of one pinned block, and a second
+    fit, the first's volumes dropped, takes the block from torch's caching
+    host allocator.  Two shards of the one card: the mesh's rows gathered
+    onto it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the pinned copy from the card")
+    import gc
+    subject = _holed_phantom("cuda", shards)
+    rows, idx, inside, vols, cols = _fit_rows_and_volumes(fit, *subject)
+    _assert_scattered_volumes(rows, idx, inside, vols, cols)
+    assert all(torch.from_numpy(v).is_pinned() for v in vols)
+    del vols
+    gc.collect()
+    stats = torch.cuda.memory.host_memory_stats
+    before = stats()["num_host_alloc"]
+    rows, idx, inside, vols, cols = _fit_rows_and_volumes(fit, *subject)
+    assert stats()["num_host_alloc"] == before
+    _assert_scattered_volumes(rows, idx, inside, vols, cols)
 
 
 def test_design_matches_jax():

@@ -265,6 +265,27 @@ def test_the_maps_fetch_and_scatter_once_per_volume(records):
     assert rec.spans["lazy.scatter"].calls == 6
 
 
+@pytest.mark.parametrize("mesh", [None, 2])
+def test_dti_fetches_and_scatters_once_a_fit(mesh):
+    """One `dti.scatter` and one `dti.fetch` a fit, a mesh's too (its rows
+    gathered onto one device), with the unsharded fit's volumes; nothing
+    is copied from a card on the CPU."""
+    from fibers_tpu_torch.parallel.mesh import make_mesh
+    dwi, mask = _subject()
+    whole = tt.dti_fit(dwi, mask, batch=tt.prepare_batch(dwi, mask,
+                                                         device="cpu"))
+    batch = tt.prepare_batch(
+        dwi, mask, device="cpu",
+        mesh=None if mesh is None else make_mesh(mesh, device="cpu"))
+    with profiling.collect() as rec:
+        dti = tt.dti_fit(dwi, mask, batch=batch)
+    assert rec.spans["dti.fetch"].calls == rec.spans["dti.scatter"].calls == 1
+    assert rec.counters.get("transfer.d2h_bytes", 0) == 0
+    for name in ("fa", "eigvec1", "s0"):
+        got, want = getattr(dti, name).vol, getattr(whole, name).vol
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def test_rumba_timings_keep_their_keys_and_hold_the_spans(records):
     rec, timings = records["rumba"]
     assert sorted(timings) == ["iterate", "post", "signal"]
@@ -322,7 +343,10 @@ def test_copies_from_the_card_are_counted(card):
     from fibers_tpu_torch.models.dti import _DTI_COLS
     ncol = max(hi for _, hi in _DTI_COLS.values())
     n = int(np.asarray(mask.vol).sum())
-    # the DTI result rows and the six maps' rows (3 peaks, 3 QA), float32
-    assert rec.counters["transfer.d2h_bytes"] == 4 * n * (ncol + 3 * 3 + 3)
+    nxyz = int(np.asarray(mask.vol).size)
+    # the DTI volumes, scattered on the card and copied whole, and the six
+    # maps' rows (3 peaks, 3 QA), float32
+    assert rec.counters["transfer.d2h_bytes"] == \
+        4 * (nxyz * ncol + n * (3 * 3 + 3))
     assert rec.spans["lazy.fetch"].calls == len(maps) == 6
     assert dti.fa.vol.shape == mask.vol.shape
