@@ -38,7 +38,7 @@ from ..io.dispatch import mri_write_struct
 from ..ops.masked import gather_frames, mask_indices
 from ..ops.peaks import build_neighbors, peak_mask, top_peaks
 from ..parallel.mesh import ShardedRows, as_mesh, shard_max
-from ..utils.profiling import lap
+from ..utils.profiling import count, lap
 
 __all__ = ["DSI", "dsi_rec", "dsi_write"]
 
@@ -218,7 +218,8 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     chunks, and the QA normaliser is a maximum over the shards; the
     results stay sharded.  `timings`: a dict that receives the stage wall
     times, each ending in a device synchronize: upload (the host tables
-    and the uploads), chunks and finalize.
+    and the uploads), tables (the host tables alone, inside upload),
+    chunks and finalize.
 
     Returns a `DSI` whose volumes stay on the device until host code
     reads them, with the peaks as `DevicePeaks` for `stream`.
@@ -235,23 +236,24 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
 
     with lap(timings, "dsi.upload") as stage:
         nvert = odf_dirs.nvert_half
-        nfft, iq_flat, hann = _dsi_grid(np.asarray(dwi.bval, np.float32),
-                                        np.asarray(dwi.bvec, np.float32),
-                                        hann_width)
-        wmat = _radial_weight_matrix(nfft, odf_dirs)
-        _, verts_first, faces0 = half_sphere(odf_dirs)
-        nbr, nbr_ok = build_neighbors(faces0, nvert)
+        with lap(timings, "dsi.tables"):
+            nfft, iq_flat, hann = _dsi_grid(
+                np.asarray(dwi.bval, np.float32),
+                np.asarray(dwi.bvec, np.float32), hann_width)
+            wmat = _radial_weight_matrix(nfft, odf_dirs)
+            _, verts_first, faces0 = half_sphere(odf_dirs)
+            nbr, nbr_ok = build_neighbors(faces0, nvert)
 
-        # the Hermitian full -> half spectrum mirror folded into the GEMM
-        # operand and the PDF sample indices; the PDF sum as one extra column
-        # (the count of full cells per half cell)
-        half_map = _half_spectrum_map(nfft)
-        nhalf = nfft * nfft * (nfft // 2 + 1)
-        wmat_aug = np.zeros((nhalf, nvert + 1), np.float32)
-        np.add.at(wmat_aug[:, :nvert], half_map, wmat)
-        wmat_aug[:, nvert] = np.bincount(half_map, minlength=nhalf)
-        iq_half = half_map[iq_flat]
-        cells, cols = _unique_cells(iq_flat)
+            # the Hermitian full -> half spectrum mirror folded into the
+            # GEMM operand and the PDF sample indices; the PDF sum as one
+            # extra column (the count of full cells per half cell)
+            half_map = _half_spectrum_map(nfft)
+            nhalf = nfft * nfft * (nfft // 2 + 1)
+            wmat_aug = np.zeros((nhalf, nvert + 1), np.float32)
+            np.add.at(wmat_aug[:, :nvert], half_map, wmat)
+            wmat_aug[:, nvert] = np.bincount(half_map, minlength=nhalf)
+            iq_half = half_map[iq_flat]
+            cells, cols = _unique_cells(iq_flat)
 
         # the mesh of a sharded batch; a one-device mesh runs unsharded there
         if mesh is None and batch is not None:
@@ -338,6 +340,8 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
                 o[2][lo:hi] = vecs_c
                 o[3][lo:hi] = qa_c
                 o[4] = torch.maximum(o[4], odfmean.max())
+                count("dsi.chunk_launches", 1)
+        count("dsi.rows", n)
     with lap(timings, "dsi.finalize", devs):
         # global QA normalisation (reference: src/dsi.jl:263-267)
         local = [o for o in outs if o is not None]

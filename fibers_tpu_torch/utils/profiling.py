@@ -44,6 +44,8 @@ The spans (each covers the host work named, its waits included):
                    products' packed operands, the start rows, TV tables
 - `dsi.upload`, `dsi.chunks`, `dsi.finalize`
                    `dsi_rec`'s stages, as its `timings=` keys
+- `dsi.tables`     inside `dsi.upload`: the q-space grid, the radial
+                   weights, the half-spectrum fold and the neighbours
 - `structens.recon` `st_recon`, the whole call
 - `stream.work`    `stream`: the orientation field and the seed arrays
 - `stream.fetch`   a seed chunk's kept lines to the host: the counts copy,
@@ -53,7 +55,8 @@ The spans (each covers the host work named, its waits included):
 
 Counters: `transfer.d2h_bytes`, the bytes copied from a CUDA device at
 `dti.fetch`, `lazy.fetch` and `stream.fetch`; `trk.bytes`, the bytes a
-`TrkSink` writes (header and records: the file's size).
+`TrkSink` writes (header and records: the file's size); `dsi.rows`, the
+voxels `dsi_rec` fits, and `dsi.chunk_launches`, the chunks it runs.
 """
 
 from __future__ import annotations

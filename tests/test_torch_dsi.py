@@ -245,7 +245,7 @@ def test_batch_and_timings():
     tm = {}
     a = tt.dsi_rec(dwi, mask, ft.sphere_362, batch=batch, timings=tm)
     b = tt.dsi_rec(dwi, mask, ft.sphere_362, device="cpu")
-    assert set(tm) == {"upload", "chunks", "finalize"}
+    assert set(tm) == {"upload", "tables", "chunks", "finalize"}
     assert np.array_equal(np.asarray(a.odf.vol), np.asarray(b.odf.vol))
 
 

@@ -310,7 +310,7 @@ def test_dsi_stages_are_spans_with_their_timings():
     tm = {}
     with profiling.collect() as rec:
         tt.dsi_rec(dwi, mask, tt.sphere_362, device="cpu", timings=tm)
-    assert set(tm) == {"upload", "chunks", "finalize"}
+    assert set(tm) == {"upload", "tables", "chunks", "finalize"}
     for key in tm:
         assert rec.spans["dsi." + key].calls == 1
         assert tm[key] <= rec.spans["dsi." + key].total_s
