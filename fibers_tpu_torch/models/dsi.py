@@ -30,7 +30,7 @@ import torch
 
 from ..core.batch import WIRES, prepare_batch
 from ..core.handoff import DevicePeaks
-from ..core.lazy import LazyVolume
+from ..core.lazy import LazyVolume, lazy_peak_volumes
 from ..core.mri import MRI
 from ..core.odf import ODF, half_sphere
 from ..device import resolve
@@ -359,15 +359,18 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
                             real.rows) for k in range(4))
         shape3 = mask.vol.shape[:3]
 
-        def lazy(values, nframes):
+        def lazy(vol, nframes):
             out = MRI.like(mask, nframes, np.float32)
-            out.vol = LazyVolume(values, idx, shape3, nframes)
+            out.vol = vol
             return out
 
-        peak = [lazy(vecs_b[:, ip, :], 3) for ip in range(NPEAK)]
-        qa = [lazy(qa_b[:, ip], 1) for ip in range(NPEAK)]
-        out = DSI(pdf=lazy(pdf_b, nq), odf=lazy(odf_b, nvert), peak=peak,
-                  qa=qa, _peak_dev=DevicePeaks(vecs=vecs_b, amp=qa_b, idx=idx,
+        # the three peak and three QA volumes reach the host in one copy
+        peak_v, qa_v = lazy_peak_volumes(vecs_b, qa_b, idx, shape3)
+        out = DSI(pdf=lazy(LazyVolume(pdf_b, idx, shape3, nq), nq),
+                  odf=lazy(LazyVolume(odf_b, idx, shape3, nvert), nvert),
+                  peak=[lazy(v, 3) for v in peak_v],
+                  qa=[lazy(v, 1) for v in qa_v],
+                  _peak_dev=DevicePeaks(vecs=vecs_b, amp=qa_b, idx=idx,
                                         ref=mask))
     return out
 

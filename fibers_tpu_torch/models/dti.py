@@ -6,19 +6,21 @@ batch, scattered back into host volumes (reference: src/dti.jl:164-316).
 The normal-equation products are plain large matrix products, left to
 `torch.matmul` in float32 (TF32 stays off; see fibers_tpu_torch.device).
 
-The result reaches the host as whole volumes (`_host_volumes`): the rows
-are scattered on their device into one zeroed buffer that holds the
-volumes back to back, the buffer comes to the host in one copy, and each
-volume is a numpy view of that copy.  From a CUDA device the copy lands
-in one pinned block of torch's caching host allocator (128 MB at the
-HCP scale: 140x140x92 voxels, 16 frames).  Every volume of a fit keeps
-the whole block alive through its `base`, so a caller who keeps any one
-volume (only `fa`, say) holds all 128 MB of pinned memory; `np.array(vol)`
-copies a volume out to keep it alone.  When the last view is dropped the
-block goes back to the pool, still page-locked, and the next fit takes it
-again without a new page-locked allocation.  A batch sharded over a mesh
-runs the same kernel once per shard; its rows are gathered onto one of
-its devices and take the same route from there.
+The result reaches the host as whole volumes through the route the lazy
+volumes take (`core.lazy.host_volumes`, spans `dti.scatter` and
+`dti.fetch`): the rows are scattered on their device into one zeroed
+buffer that holds the volumes back to back, the buffer comes to the host
+in one copy, and each volume is a numpy view of that copy.  From a CUDA
+device the copy lands in one pinned block of torch's caching host
+allocator (128 MB at the HCP scale: 140x140x92 voxels, 16 frames).
+Every volume of a fit keeps the whole block alive through its `base`, so
+a caller who keeps any one volume (only `fa`, say) holds all 128 MB of
+pinned memory; `np.array(vol)` copies a volume out to keep it alone.
+When the last view is dropped the block goes back to the pool, still
+page-locked, and the next fit takes it again without a new page-locked
+allocation.  A batch sharded over a mesh runs the same kernel once per
+shard; its rows are gathered onto one of its devices and take the same
+route from there.
 """
 
 from __future__ import annotations
@@ -28,12 +30,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.lazy import host_volumes
 from ..core.mri import MRI
-from ..device import upload
 from ..io.dispatch import mri_write_struct
 from ..ops.eig3 import eigh3
 from ..parallel.mesh import ShardedRows
-from ..utils.profiling import count, span
 
 __all__ = ["DTI", "adc_fit", "dti_fit", "dti_fit_ls", "dti_maps", "dti_write"]
 
@@ -161,44 +162,6 @@ _DTI_COLS = dict(s0=(0, 1), eigval1=(1, 2), eigval2=(2, 3), eigval3=(3, 4),
 _ADC_COLS = ((0, 1), (1, 2))            # [N, 2]: adc, s0
 
 
-def _host_volumes(rows, idx, shape3, cols):
-    """One host volume per column group `(lo, hi)` of the result `rows`
-    [n, ncol] at the flat voxel indices `idx`: float32, C-contiguous,
-    `shape3` for one column and `shape3 + (hi - lo,)` for more, zero
-    outside the mask.  The spans `dti.scatter` and `dti.fetch` hold the
-    work (utils/profiling.py).
-
-    The rows are scattered on their device into one zeroed buffer, each
-    group's volume a contiguous slice; the buffer comes to the host in one
-    copy (pinned from a CUDA device) and each volume is a view of it.
-    The values are copied, not computed: the volumes hold the same bits
-    as `ops.masked.scatter_frames` of the fetched rows.  A `ShardedRows`
-    result (rows on several devices) is first gathered onto one of them."""
-    nxyz = int(np.prod(shape3))
-    with span("dti.scatter"):
-        if isinstance(rows, ShardedRows):
-            rows = rows.gather()
-        idx_dev = upload(np.asarray(idx, np.int64), rows.device)
-        buf = torch.zeros(nxyz * sum(hi - lo for lo, hi in cols),
-                          dtype=rows.dtype, device=rows.device)
-        host = (torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-                if buf.is_cuda else buf)
-        flat = host.numpy()
-        vols, off = [], 0
-        for lo, hi in cols:
-            n = nxyz * (hi - lo)
-            buf[off:off + n].view(nxyz, hi - lo).index_copy_(
-                0, idx_dev, rows[:, lo:hi])
-            vols.append(flat[off:off + n].reshape(
-                shape3 + ((hi - lo,) if hi - lo > 1 else ())))
-            off += n
-    with span("dti.fetch"):
-        if host is not buf:
-            count("transfer.d2h_bytes", buf.nbytes)
-            host.copy_(buf)
-    return vols
-
-
 def _dti_kernel(signals, A, ib0):
     d, valid = _masked_wls(signals, A, ib0)
 
@@ -251,8 +214,8 @@ def adc_fit(dwi: MRI, mask: MRI, batch=None, device=None):
                       batch.signals, A, ib0)[:batch.n]
     adc = MRI.like(mask, 1, np.float32)
     s0 = MRI.like(mask, 1, np.float32)
-    adc.vol, s0.vol = _host_volumes(both, batch.idx, mask.vol.shape[:3],
-                                    _ADC_COLS)
+    adc.vol, s0.vol = host_volumes(both, batch.idx, mask.vol.shape[:3],
+                                   _ADC_COLS, "dti")
     return adc, s0
 
 
@@ -275,8 +238,8 @@ def dti_fit_ls(dwi: MRI, mask: MRI, batch=None, device=None) -> DTI:
         _design_dti(np.asarray(dwi.bval, np.float32),
                     np.asarray(dwi.bvec, np.float32)))
     arr = _per_shard(_dti_kernel, batch.signals, A, ib0)[:batch.n]
-    vols = _host_volumes(arr, batch.idx, mask.vol.shape[:3],
-                         _DTI_COLS.values())
+    vols = host_volumes(arr, batch.idx, mask.vol.shape[:3],
+                        _DTI_COLS.values(), "dti")
     out = {}
     for (name, (lo, hi)), v in zip(_DTI_COLS.items(), vols):
         out[name] = MRI.like(mask, hi - lo, np.float32)

@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 from ..core.handoff import DevicePeaks
-from ..core.lazy import LazyVolume
+from ..core.lazy import LazyVolume, lazy_peak_volumes
 from ..core.mri import MRI
 from ..core.odf import ODF, half_sphere
 from ..io.dispatch import mri_write_struct
-from ..ops.kernels.gqi_fused import NPEAK, gqi_fused
+from ..ops.kernels.gqi_fused import gqi_fused
 from ..ops.peaks import build_neighbors, peak_mask
 from ..parallel.mesh import ShardedRows, shard_max
 from ..utils.profiling import span
@@ -187,17 +187,17 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     # every large output stays on the device: the volumes materialize on
     # the host on first access, and DevicePeaks feeds tractography
     shape3 = mask.vol.shape[:3]
-    odf = MRI.like(mask, nvert, np.float32)
-    odf.vol = LazyVolume(odf_b, idx, shape3, nvert)
-    peak, qa = [], []
-    for ip in range(NPEAK):
-        pm = MRI.like(mask, 3, np.float32)
-        pm.vol = LazyVolume(vecs_b[:, ip, :], idx, shape3, 3)
-        peak.append(pm)
-        qm = MRI.like(mask, 1, np.float32)
-        qm.vol = LazyVolume(qa_b[:, ip], idx, shape3, 1)
-        qa.append(qm)
-    return GQI(odf=odf, peak=peak, qa=qa,
+
+    def lazy(vol, nframes):
+        out = MRI.like(mask, nframes, np.float32)
+        out.vol = vol
+        return out
+
+    # the three peak and three QA volumes reach the host in one copy
+    peak_v, qa_v = lazy_peak_volumes(vecs_b, qa_b, idx, shape3)
+    return GQI(odf=lazy(LazyVolume(odf_b, idx, shape3, nvert), nvert),
+               peak=[lazy(v, 3) for v in peak_v],
+               qa=[lazy(v, 1) for v in qa_v],
                _peak_dev=DevicePeaks(vecs=vecs_b, amp=qa_b, idx=idx,
                                      ref=mask))
 

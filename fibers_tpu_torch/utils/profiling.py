@@ -31,13 +31,16 @@ The spans (each covers the host work named, its waits included):
 - `dti.scatter`    `dti_fit`, `adc_fit`: the result's scatter on its
                    device into one zeroed buffer (launches; a mesh's
                    rows gathered onto one device first), the host block
-                   and the volumes' views of it
+                   and the volumes' views of it (`core.lazy.host_volumes`)
 - `dti.fetch`      `dti_fit`, `adc_fit`: the scattered buffer's one copy
                    to the host (the wait for the fit and the copy)
 - `gqi.tables`     `gqi_rec`: the design matrix, half sphere and
                    neighbour tables, and their uploads
-- `lazy.fetch`     a lazy volume's or array's copy to the host
-- `lazy.scatter`   a lazy volume's scatter into its host volume
+- `lazy.scatter`   a lazy volume's or group's scatter, as `dti.scatter`;
+                   on the host route the numpy scatters
+- `lazy.fetch`     a lazy array's copy to the host; a lazy volume's or
+                   group's one copy, as `dti.fetch`; on the host route
+                   the rows' copy
 - `rumba.signal`, `rumba.iterate`, `rumba.post`
                    `rumba_rec`'s stages, as its `timings=` keys
 - `rumba.init`     inside `rumba.iterate`: the angular neighbours, the
@@ -56,7 +59,12 @@ The spans (each covers the host work named, its waits included):
 Counters: `transfer.d2h_bytes`, the bytes copied from a CUDA device at
 `dti.fetch`, `lazy.fetch` and `stream.fetch`; `trk.bytes`, the bytes a
 `TrkSink` writes (header and records: the file's size); `dsi.rows`, the
-voxels `dsi_rec` fits, and `dsi.chunk_launches`, the chunks it runs.
+voxels `dsi_rec` fits, and `dsi.chunk_launches`, the chunks it runs;
+`lazy.volumes`, the lazy volumes materialized, `lazy.copies`, the copies
+they took (one a volume or group of siblings), and `lazy.host_scatter`,
+the volumes whose grid did not fit in the device's free memory and were
+scattered on the host instead (`dti.volumes`, `dti.copies`,
+`dti.host_scatter` the same for DTI's and ADC's results).
 """
 
 from __future__ import annotations

@@ -261,8 +261,14 @@ def test_the_maps_fetch_and_scatter_once_per_volume(records):
     assert rec.spans["dti.fetch"].calls == 1
     assert rec.spans["dti.scatter"].calls == 1
     assert rec.spans["gqi.tables"].calls == 1
-    assert rec.spans["lazy.fetch"].calls == 6          # 3 peaks, 3 QA
-    assert rec.spans["lazy.scatter"].calls == 6
+    # the 3 peak and 3 QA volumes are one group: one scatter, one copy
+    assert rec.spans["lazy.fetch"].calls == 1
+    assert rec.spans["lazy.scatter"].calls == 1
+    assert rec.counters["lazy.volumes"] == 6
+    assert rec.counters["lazy.copies"] == 1
+    assert rec.counters["dti.volumes"] == 10
+    assert rec.counters["dti.copies"] == 1
+    assert "lazy.host_scatter" not in rec.counters
 
 
 @pytest.mark.parametrize("mesh", [None, 2])
@@ -342,11 +348,12 @@ def test_copies_from_the_card_are_counted(card):
         maps = [np.asarray(m.vol) for m in gqi.peak + gqi.qa]
     from fibers_tpu_torch.models.dti import _DTI_COLS
     ncol = max(hi for _, hi in _DTI_COLS.values())
-    n = int(np.asarray(mask.vol).sum())
     nxyz = int(np.asarray(mask.vol).size)
-    # the DTI volumes, scattered on the card and copied whole, and the six
-    # maps' rows (3 peaks, 3 QA), float32
+    # the DTI volumes and the six maps (3 peaks, 3 QA), each scattered on
+    # the card and copied whole in one go, float32
     assert rec.counters["transfer.d2h_bytes"] == \
-        4 * (nxyz * ncol + n * (3 * 3 + 3))
-    assert rec.spans["lazy.fetch"].calls == len(maps) == 6
+        4 * nxyz * (ncol + 3 * 3 + 3)
+    assert rec.spans["lazy.fetch"].calls == 1 and len(maps) == 6
+    assert rec.counters["lazy.volumes"] == 6
+    assert rec.counters["lazy.copies"] == 1
     assert dti.fa.vol.shape == mask.vol.shape
