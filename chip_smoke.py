@@ -1653,11 +1653,11 @@ def phase_rumba_step(dwi, mask, warm=5, reps=10):
     tv_buf = torch.ones((n, ncomp), device=cuda)
 
     packs = rm._pack_products(k, "high")
+    tv_term = rm._row_tv(tabs, shape3, False, tv_buf)
 
     def step(st, x):
         return rm._rumba_step(*st, signal, k, idx_d, 1, 1, True, shape3,
-                              "high", False, tabs=tabs, tv_buf=tv_buf, x=x,
-                              packs=packs)
+                              "high", False, x=x, packs=packs, tv=tv_term)
 
     x = None
     for _ in range(warm):

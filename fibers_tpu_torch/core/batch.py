@@ -29,7 +29,8 @@ import torch
 from ..device import resolve
 from ..ops.masked import mask_indices, padded_size
 from ..ops.transfer import quant_u8_scale, quant_u12_scale, quant_u16_scale
-from ..parallel.mesh import ShardedRows, as_mesh, pad_to_multiple, put_batch
+from ..parallel.mesh import (ShardedRows, as_mesh, pad_to_multiple, put_batch,
+                             resolve_mesh)
 from ..utils.profiling import span
 
 __all__ = ["VoxelBatch", "prepare_batch"]
@@ -264,9 +265,7 @@ def prepare_batch(dwi, mask, mesh=None, wire: str = "auto",
     that takes the batch then runs once per shard.  `device` is ignored
     then.
     """
-    mesh = as_mesh(mesh)
-    if mesh is not None and mesh.size == 1:
-        device, mesh = mesh.flat_devices[0], None
+    mesh, device = resolve_mesh(mesh, device)
     idx = mask_indices(mask.vol)
     n_pad = padded_size(len(idx))
     if mesh is not None:

@@ -37,7 +37,8 @@ from ..device import resolve
 from ..io.dispatch import mri_write_struct
 from ..ops.masked import gather_frames, mask_indices
 from ..ops.peaks import build_neighbors, peak_mask, top_peaks
-from ..parallel.mesh import ShardedRows, as_mesh, shard_max
+from ..parallel.mesh import (ShardedRows, as_mesh, from_shards, resolve_mesh,
+                             shard_max)
 from ..utils.profiling import count, lap
 
 __all__ = ["DSI", "dsi_rec", "dsi_write"]
@@ -256,10 +257,8 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             cells, cols = _unique_cells(iq_flat)
 
         # the mesh of a sharded batch; a one-device mesh runs unsharded there
-        if mesh is None and batch is not None:
-            mesh = batch.mesh
-        if mesh is not None and mesh.size == 1:
-            device, mesh = mesh.flat_devices[0], None
+        mesh, device = resolve_mesh(mesh, device, getattr(batch, "mesh",
+                                                          None))
         if mesh is not None:
             dev = mesh.data_devices[0]
             if batch is None or not isinstance(batch.signals, ShardedRows):
@@ -309,9 +308,10 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         # one part per local shard (the whole batch without a mesh), each on
         # its device; the chunk loop interleaves the parts
         if isinstance(signals, ShardedRows):
-            real = signals[:n]
-            parts = [None if s is None else (s, s.device) for s in real.shards]
+            src = signals[:n]
+            parts = [None if s is None else (s, s.device) for s in src.shards]
         else:
+            src = signals
             parts = [(signals, dev)]
         outs = []
         for part in parts:
@@ -345,18 +345,11 @@ def dsi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     with lap(timings, "dsi.finalize", devs):
         # global QA normalisation (reference: src/dsi.jl:263-267)
         local = [o for o in outs if o is not None]
-        maxes = [o[4] for o in local]
-        if mesh is not None:
-            maxes = shard_max(maxes, mesh)
-        for o, odfmax in zip(local, maxes):
+        for o, odfmax in zip(local, shard_max([o[4] for o in local], mesh)):
             o[3] = torch.where(odfmax > 0,
                                o[3] / torch.clamp_min(odfmax, 1e-30), o[3])
-        if mesh is None:
-            pdf_b, odf_b, vecs_b, qa_b = outs[0][:4]
-        else:
-            pdf_b, odf_b, vecs_b, qa_b = (
-                ShardedRows([None if o is None else o[k] for o in outs], mesh,
-                            real.rows) for k in range(4))
+        pdf_b, odf_b, vecs_b, qa_b = (from_shards([o[k] for o in local], src)
+                                      for k in range(4))
         shape3 = mask.vol.shape[:3]
 
         def lazy(vol, nframes):

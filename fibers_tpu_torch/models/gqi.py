@@ -6,8 +6,8 @@ top-3 in place of the reference's per-voxel sortperm (reference:
 src/gqi.jl:109-171).  On a CUDA batch the product, the peak mask, the
 per-voxel stats and the top-3 run in one hand-written kernel
 (ops/kernels/gqi_fused.py); on a CPU batch in plain PyTorch.  A batch
-sharded over a mesh runs the kernel once per shard; the QA normaliser is
-then a maximum over the shards.
+sharded over a mesh runs the same calls once per shard; the QA normaliser
+is then a maximum over the shards.
 
 Yeh et al. (2010), IEEE TMI 29(9):1626-1635.
 """
@@ -27,7 +27,7 @@ from ..core.odf import ODF, half_sphere
 from ..io.dispatch import mri_write_struct
 from ..ops.kernels.gqi_fused import gqi_fused
 from ..ops.peaks import build_neighbors, peak_mask
-from ..parallel.mesh import ShardedRows, shard_max
+from ..parallel.mesh import map_shards, per_shard, replicate, shard_max
 from ..utils.profiling import span
 
 __all__ = ["GQI", "gqi_rec", "gqi_write", "find_peaks", "gqi_design"]
@@ -88,35 +88,18 @@ def _gqi_kernel_fused(signals, A_t, verts_first, nbr, nbr_valid):
     [N, 3] (globally normalised), valid [N].  Product, peak mask, stats
     and the top-3 peaks come from the fused tile (the CUDA kernel on a
     CUDA batch, its plain version on a CPU batch), then peak vectors, QA
-    and the odfmax normalisation."""
-    odf, _, stats, vals, idx = gqi_fused(signals, A_t, nbr, nbr_valid)
-    valid = stats[:, 2] > 0
-    return _finish(odf, vals, idx, vals > 0, stats[:, 0], stats[:, 1],
-                   valid, verts_first)
-
-
-def _gqi_sharded(signals: ShardedRows, A_t, verts_first, nbr, nbr_ok):
-    """`_gqi_kernel_fused` over a sharded batch: the fused kernel once per
-    shard, the QA normaliser the maximum over every shard's valid rows.
-    The tables are host arrays, put once on each device.  Returns
-    ShardedRows (odf, vecs, qa)."""
-    tabs, parts = {}, []
-    for i, s in signals.local():
-        d = s.device
-        if d not in tabs:
-            tabs[d] = [torch.from_numpy(np.ascontiguousarray(t)).to(d)
-                       for t in (A_t, verts_first, nbr, nbr_ok)]
-        A, vf, nb, ok = tabs[d]
-        odf, _, stats, vals, idx = gqi_fused(s, A, nb, ok)
-        parts.append((odf, stats, vals, idx, vf))
-    maxes = shard_max([_odfmax(st[:, 1], st[:, 2] > 0)
-                       for _, st, _, _, _ in parts], signals.mesh)
-    outs = iter([_finish(odf, vals, idx, vals > 0, st[:, 0], st[:, 1],
-                         st[:, 2] > 0, vf, m)
-                 for (odf, st, vals, idx, vf), m in zip(parts, maxes)])
-    done = [None if s is None else next(outs) for s in signals.shards]
-    return tuple(ShardedRows([None if o is None else o[k] for o in done],
-                             signals.mesh, signals.rows) for k in range(3))
+    and the odfmax normalisation.  On a `ShardedRows` batch, with the
+    tables {device: tensor} (`replicate`), the kernel runs once per shard
+    and the QA normaliser is the maximum over every shard."""
+    odf, _, stats, vals, idx = map_shards(gqi_fused, signals, A_t, nbr,
+                                          nbr_valid)
+    valid = map_shards(lambda st: st[:, 2] > 0, stats)
+    odfmax = shard_max(per_shard(lambda st, v: _odfmax(st[:, 1], v), stats,
+                                 valid), getattr(signals, "mesh", None))
+    return map_shards(
+        lambda o, va, ix, st, v, vf, m: _finish(o, va, ix, va > 0, st[:, 0],
+                                                st[:, 1], v, vf, m),
+        odf, vals, idx, stats, valid, verts_first, odfmax)
 
 
 def find_peaks(o, odf_dirs: ODF):
@@ -167,22 +150,14 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
         raise ValueError(f"gqi_rec(impl='kernel') needs a CUDA batch, got "
                          f"one on {dev}")
     nvert = odf_dirs.nvert_half
-    sharded = isinstance(signals, ShardedRows)
     with span("gqi.tables"):
         A = gqi_design(np.asarray(dwi.bval, np.float32),
                        np.asarray(dwi.bvec, np.float32), odf_dirs, sigma)
         _, verts_first, faces0 = half_sphere(odf_dirs)
         nbr, nbr_ok = build_neighbors(faces0, nvert)
-        if not sharded:
-            vf = torch.from_numpy(np.ascontiguousarray(verts_first)).to(dev)
-            nb = torch.from_numpy(nbr).to(dev)
-            ok = torch.from_numpy(nbr_ok).to(dev)
-            A_t = torch.from_numpy(np.ascontiguousarray(A.T)).to(dev)
-    if sharded:
-        odf_b, vecs_b, qa_b = _gqi_sharded(signals, A.T, verts_first, nbr,
-                                           nbr_ok)
-    else:
-        odf_b, vecs_b, qa_b, _ = _gqi_kernel_fused(signals, A_t, vf, nb, ok)
+        vf, nb, ok, A_t = (replicate(t, batch.mesh, dev)
+                           for t in (verts_first, nbr, nbr_ok, A.T))
+    odf_b, vecs_b, qa_b, _ = _gqi_kernel_fused(signals, A_t, vf, nb, ok)
 
     # every large output stays on the device: the volumes materialize on
     # the host on first access, and DevicePeaks feeds tractography

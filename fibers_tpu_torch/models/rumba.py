@@ -54,10 +54,11 @@ from ..ops.kernels.tv_fused import build_tables, embed_index, tv_fused
 from ..ops.kernels.tv_stencil import tv_multiplier
 from ..ops.masked import mask_indices
 from ..ops.peaks import topk_lower_first
-from ..parallel.mesh import (ShardedRows, _move, as_mesh, components_to_rows,
-                             gather_rows, map_shards, pad_to_multiple,
-                             put_batch, replicate, rows_to_components,
-                             shard_sum)
+from ..parallel.mesh import (ShardedRows, as_mesh, as_tensor,
+                             components_to_rows, map_shards, pad_to_multiple,
+                             per_device, put_batch, put_rows, replicate,
+                             resolve_mesh, row_mean, rows_to_components,
+                             spread)
 from ..utils.coords import ang2rot, cart2sph
 from ..utils.profiling import lap, span
 
@@ -259,52 +260,80 @@ def _first_x(signal, dodf_sig, n_order):
 
 def _rumba_step(fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel,
                 idx_mask, n_order, ipat_factor, use_tv, shape3,
-                precision="high", tv_bf16=False, tabs=None, tv_buf=None,
-                x=None, packs=None):
-    """One RUMBA-SD iteration over the voxel batch.
+                precision="high", tv_bf16=False, x=None, packs=None,
+                tv=None):
+    """One RUMBA-SD iteration over the voxel batch, on one device or, on
+    `ShardedRows` state, once per shard of a mesh.
     (reference: src/rusd.jl:266-339)
 
-    fodf [N, ncomp], dodf and dodf_sig [N, ndir], sig2 [N, 1], lam_flat
-    [prod(shape3)] on the TV crop `shape3`, signal [N, ndir], kernel
-    [ndir, ncomp], idx_mask the crop cells of the first len(idx_mask)
-    rows (later rows are padding).  The TV tables `tabs`
-    (tv_fused.build_tables), the multiplier buffer `tv_buf` and the
-    products' planes `packs` (`_pack_products`) are built here when not
-    given.  `x` [N, ndir] is the numerator operand the
-    previous iteration returned, which this one overwrites with the next
-    (None: computed from dodf_sig).  The other arguments are left as they
-    are.
+    fodf [N, ncomp], dodf and dodf_sig [N, ndir], sig2 [N, 1] and signal
+    [N, ndir] are tensors or `ShardedRows`; lam_flat [prod(shape3)] on the
+    TV crop `shape3`, kernel [ndir, ncomp] and idx_mask (the crop cells of
+    the first len(idx_mask) rows; later rows are padding) are tensors, or
+    on a mesh {device: tensor} (`replicate`).  `tv` is the TV term
+    (`_tv_fn`) and `packs` the products' planes (`_pack_products`, per
+    device on a mesh); on one device both are built here when not given.
+    `x` [N, ndir] is the numerator operand the previous iteration
+    returned, which this one overwrites with the next (None: computed from
+    dodf_sig).  The other arguments are left as they are.  Lambda and the noise variance's mean
+    take the real rows of every shard.
     Returns (fodf, dodf, dodf_sig, sig2, lam_flat, snr, x), the last the
     next iteration's x."""
-    nmask = idx_mask.shape[0]
+    nmask = as_tensor(idx_mask).shape[0]
     if x is None:
-        x = _first_x(signal, dodf_sig, n_order)
+        x = map_shards(lambda s, ds: _first_x(s, ds, n_order), signal,
+                       dodf_sig)
     if packs is None:
-        packs = _pack_products(kernel, precision)
+        packs = per_device(lambda k: _pack_products(k, precision), kernel)
 
-    tv = None
+    t = None
     if use_tv:
-        if tv_buf is None:
-            tv_buf = torch.ones_like(fodf)
-        if tabs is None:
-            tabs = build_tables(idx_mask.cpu().numpy(), shape3, fodf.device)
-        tv = _tv_term(fodf, lam_flat.reshape(shape3), tabs, tv_bf16, tv_buf)
-    fodf = _update_rows(fodf, x, dodf, tv, kernel, precision, packs[0])
-    dodf, dodf_sig, sig2, x = _refit_rows(fodf, signal, dodf_sig, sig2,
-                                          kernel, n_order, precision, x,
-                                          packs[1])
+        if tv is None:
+            tv = _tv_fn(None, idx_mask.cpu().numpy(), shape3, *fodf.shape,
+                        tv_bf16, fodf.device)
+        t = tv(fodf, lam_flat)
+    fodf = map_shards(
+        lambda f, x_, d, t_, k, p: _update_rows(f, x_, d, t_, k, precision,
+                                                p[0]),
+        fodf, x, dodf, t, kernel, packs)
+    del t
+    dodf, dodf_sig, sig2, x = map_shards(
+        lambda f, s, ds, s2, k, x_, p: _refit_rows(f, s, ds, s2, k, n_order,
+                                                   precision, x_, p[1]),
+        fodf, signal, dodf_sig, sig2, kernel, x, packs)
 
     # Lambda update (reference: src/rusd.jl:326-339), over the real rows
     if use_tv:
+        lam0 = as_tensor(lam_flat)
         if ipat_factor == 1:
-            m = torch.clamp_min(sig2[:nmask].mean(), (1.0 / 30) ** 2)
-            lam_flat = m.expand(lam_flat.shape).contiguous()
+            m = torch.clamp_min(row_mean(sig2, nmask), (1.0 / 30) ** 2)
+            lam_flat = per_device(lambda t: t.expand(lam0.shape).contiguous(),
+                                  spread(m, lam_flat))
         else:
-            lam_flat = torch.zeros_like(lam_flat).index_put_(
-                (idx_mask,), sig2[:nmask, 0])
+            lam_flat = spread(torch.zeros_like(lam0).index_put_(
+                (as_tensor(idx_mask),),
+                as_tensor(sig2[:nmask], lam0.device)[:, 0]), lam_flat)
 
-    snr = 1.0 / torch.sqrt(sig2)
+    snr = map_shards(lambda s: 1.0 / torch.sqrt(s), sig2)
     return fodf, dodf, dodf_sig, sig2, lam_flat, snr, x
+
+
+def _row_tv(tabs, shape3, tv_bf16, buf):
+    """RUMBA's TV term on one device: `_tv_term` over the crop's row
+    tables, written into `buf`; called as `_MeshTV` is."""
+    return lambda fodf, lam_flat: _tv_term(fodf, lam_flat.reshape(shape3),
+                                           tabs, tv_bf16, buf)
+
+
+def _tv_fn(mesh, idx_tv, tv_shape3, n_rows, ncomp, tv_bf16, device):
+    """The TV term of a fit, `(fodf, lam_flat) -> multiplier rows`, built
+    once: `_row_tv` with its buffer and tables on `device`, or `_MeshTV`
+    over `mesh`."""
+    if mesh is not None:
+        return _MeshTV.build(mesh, idx_tv, tv_shape3, n_rows, ncomp, tv_bf16)
+    buf = torch.ones((n_rows, ncomp), dtype=torch.float32, device=device)
+    return _row_tv(build_tables(idx_tv, tv_shape3, device), tv_shape3,
+                   tv_bf16, buf)
 
 
 def mesh_tv_width(ncomp: int, ndev: int) -> int:
@@ -325,7 +354,8 @@ class _MeshTV:
     into the crop (`embed`: cell -> row, the zero row n for cells outside
     the mask), runs `tv_multiplier` on it, gathers the rows back (`back`:
     row -> cell, cell 0 for padding rows, whose fODF is zero) and the
-    multiplier reshards to rows.  `embed`/`back` are per device."""
+    multiplier reshards to rows.  `embed`/`back` are per device, as is
+    the flat lambda it is called with."""
 
     shape3: tuple
     ncomp: int
@@ -350,7 +380,7 @@ class _MeshTV:
                    replicate(cellrow, mesh), replicate(rowcell, mesh),
                    torch.bfloat16 if tv_bf16 else torch.float32)
 
-    def __call__(self, fodf: ShardedRows, lam3: dict) -> ShardedRows:
+    def __call__(self, fodf: ShardedRows, lam_flat: dict) -> ShardedRows:
         pad = self.width * fodf.mesh.size - self.ncomp
         x = fodf.map(lambda f: torch.nn.functional.pad(
             f.to(self.dtype), (0, pad)))
@@ -359,68 +389,17 @@ class _MeshTV:
             d = blk.device
             rows = torch.cat([blk, blk.new_zeros((1, self.width))])
             v = rows[self.embed[d]].reshape(self.shape3 + (self.width,))
-            tv = tv_multiplier(v, lam3[d]).reshape(-1, self.width)
+            tv = tv_multiplier(v, lam_flat[d].reshape(self.shape3)).reshape(
+                -1, self.width)
             out[k] = tv[self.back[d]]
         return components_to_rows(out, x).map(lambda t: t[:, :self.ncomp])
-
-
-def _rumba_step_sharded(fodf, dodf, dodf_sig, sig2, lam, signal, kernel,
-                        idx_mask, n_order, ipat_factor, use_tv, tv,
-                        precision, x=None, packs=None):
-    """`_rumba_step` over ShardedRows state: the row-wise work once per
-    shard (`kernel` and `idx_mask` {device: tensor}, `packs` {device:
-    `_pack_products`}, built here when None), the TV multiplier resharded
-    over components (`tv`, a `_MeshTV`), and lambda from the real rows of
-    every shard.  `lam` is {device: [prod(tv.shape3)]} over the mesh's
-    devices.  `x` and the result as `_rumba_step`'s."""
-    mesh = fodf.mesh
-    nmask = next(iter(idx_mask.values())).shape[0]
-    if x is None:
-        x = map_shards(lambda s, ds: _first_x(s, ds, n_order), signal,
-                       dodf_sig)
-    if packs is None:
-        packs = {d: _pack_products(k, precision) for d, k in kernel.items()}
-    t = None
-    if use_tv:
-        t = tv(fodf, {d: v.reshape(tv.shape3) for d, v in lam.items()})
-    fodf = map_shards(
-        lambda f, x_, d, t_, k, p: _update_rows(f, x_, d, t_, k, precision,
-                                                p[0]),
-        fodf, x, dodf, t, kernel, packs)
-    del t
-    dodf, dodf_sig, sig2, x = map_shards(
-        lambda f, s, ds, s2, k, x_, p: _refit_rows(f, s, ds, s2, k, n_order,
-                                                   precision, x_, p[1]),
-        fodf, signal, dodf_sig, sig2, kernel, x, packs)
-    if use_tv:
-        real = sig2[:nmask]
-        if ipat_factor == 1:
-            tot = shard_sum([s.sum() for _, s in real.local()], mesh)[0]
-            m = torch.clamp_min(tot / nmask, (1.0 / 30) ** 2)
-            lam = {d: _move(m, d).expand(v.shape).contiguous()
-                   for d, v in lam.items()}
-        else:
-            d0 = next(iter(lam))
-            lam0 = torch.zeros_like(lam[d0]).index_put_(
-                (idx_mask[d0],), gather_rows(real, d0)[:, 0])
-            lam = {d: _move(lam0, d) for d in lam}
-    snr = sig2.map(lambda s: 1.0 / torch.sqrt(s))
-    return fodf, dodf, dodf_sig, sig2, lam, snr, x
 
 
 def _snr_stats(sig2, nmask):
     """Mean and std (ddof=1) of SNR = 1/sigma over the real rows, as two
     device scalars (over every shard of a ShardedRows)."""
-    if isinstance(sig2, ShardedRows):
-        parts = [1.0 / torch.sqrt(s[:, 0]) for _, s in sig2[:nmask].local()]
-        ms = [t / nmask for t in shard_sum([p.sum() for p in parts],
-                                           sig2.mesh)]
-        var = shard_sum([((p - m) ** 2).sum() for p, m in zip(parts, ms)],
-                        sig2.mesh)[0] / max(nmask - 1, 1)
-        return ms[0], torch.sqrt(torch.clamp_min(var, 0.0))
-    snr = 1.0 / torch.sqrt(sig2[:nmask, 0])
-    m = snr.mean()
-    var = ((snr - m) ** 2).sum() / max(nmask - 1, 1)
+    snr = map_shards(lambda s: 1.0 / torch.sqrt(s[:, 0]), sig2[:nmask])
+    m, var = row_mean(snr, nmask, var=True)
     return m, torch.sqrt(torch.clamp_min(var, 0.0))
 
 
@@ -770,21 +749,18 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
 
         # the mesh of a sharded batch; a one-device mesh runs unsharded
         # there
-        if mesh is None and batch is not None:
-            mesh = batch.mesh
-        if mesh is not None and mesh.size == 1:
-            device, mesh = mesh.flat_devices[0], None
+        mesh, device = resolve_mesh(mesh, device, getattr(batch, "mesh",
+                                                          None))
 
         # Signal matrix: average b0 first, then DWIs, normalised by b0
         # (reference: src/rusd.jl:450-465); sharded over the mesh's data
         # axis
         if batch is not None:
             sig_b = batch.signals
-            smesh = sig_b.mesh if isinstance(sig_b, ShardedRows) else None
             signal = map_shards(_signal_from_batch, sig_b,
-                                replicate(np.flatnonzero(ib0), smesh,
+                                replicate(np.flatnonzero(ib0), batch.mesh,
                                           sig_b.device),
-                                replicate(np.flatnonzero(~ib0), smesh,
+                                replicate(np.flatnonzero(~ib0), batch.mesh,
                                           sig_b.device))
             if mesh is not None and not isinstance(signal, ShardedRows):
                 signal = put_batch(signal.cpu().numpy(), mesh)
@@ -824,9 +800,8 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             kernel_d = replicate(kernel, mesh, dev)
             # rl_gemm's planes of the kernel and its transpose, once per
             # device
-            packs = _pack_products(kernel_d, precision) if mesh is None \
-                else {d: _pack_products(k, precision)
-                      for d, k in kernel_d.items()}
+            packs = per_device(lambda k: _pack_products(k, precision),
+                               kernel_d)
             fodf = rows_of(fodf0)
             dodf = rows_of(kernel @ fodf0)
             sig2 = rows_of(np.full(1, lam0, np.float32))
@@ -852,12 +827,8 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
                         "problem or is unreadable; starting fresh "
                         "(on_mismatch='fresh')", stacklevel=2)
                 else:
-                    if mesh is None:
-                        fodf = torch.from_numpy(fodf_h).to(dev)
-                        sig2 = torch.from_numpy(sig2_h).to(dev)
-                    else:
-                        fodf = put_batch(fodf_h, mesh)
-                        sig2 = put_batch(sig2_h, mesh)
+                    fodf = put_rows(fodf_h, mesh, dev)
+                    sig2 = put_rows(sig2_h, mesh, dev)
                     lam_flat = replicate(lam_h, mesh, dev)
                     dodf = map_shards(lambda f, k: torch.matmul(f, k.T), fodf,
                                       kernel_d)
@@ -867,30 +838,18 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             dodf_sig = map_shards(lambda s, d, s2: (s * d) / s2, signal,
                                   dodf, sig2)
 
-            tabs = tv_buf = mesh_tv = x = None
-            if use_tv and mesh is None:
-                tv_buf = torch.ones((n_rows, ncomp), dtype=torch.float32,
-                                    device=dev)
-                tabs = build_tables(idx_tv, tv_shape3, dev)
-            elif use_tv:
-                mesh_tv = _MeshTV.build(mesh, idx_tv, tv_shape3, n_rows,
-                                        ncomp, tv_bf16)
+            x = None
+            tv = _tv_fn(mesh, idx_tv, tv_shape3, n_rows, ncomp, tv_bf16,
+                        dev) if use_tv else None
 
         # Iterate (verbose prints the per-iteration SNR like the reference,
         # reference: src/rusd.jl:543-556); each iteration hands the next its
         # x, the first computes it from dodf_sig
         for it in range(it_start + 1, niter + 1):
-            if mesh is None:
-                fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step(
-                    fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
-                    idx_d, n_order, ipat_factor, use_tv, tv_shape3, precision,
-                    tv_bf16, tabs=tabs, tv_buf=tv_buf, x=x, packs=packs)
-            else:
-                fodf, dodf, dodf_sig, sig2, lam_flat, _, x = \
-                    _rumba_step_sharded(
-                        fodf, dodf, dodf_sig, sig2, lam_flat, signal,
-                        kernel_d, idx_d, n_order, ipat_factor, use_tv,
-                        mesh_tv, precision, x, packs)
+            fodf, dodf, dodf_sig, sig2, lam_flat, _, x = _rumba_step(
+                fodf, dodf, dodf_sig, sig2, lam_flat, signal, kernel_d,
+                idx_d, n_order, ipat_factor, use_tv, tv_shape3, precision,
+                tv_bf16, x=x, packs=packs, tv=tv)
             if verbose:
                 sm_d, ss_d = _snr_stats(sig2, nmask)
                 ss = float(ss_d) if nmask > 1 else 0.0
@@ -900,11 +859,10 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             if (checkpoint_path is not None and checkpoint_every > 0
                     and it % checkpoint_every == 0 and it < niter):
                 tmp = checkpoint_path + ".tmp.npz"
-                lam_h = lam_flat if mesh is None else \
-                    next(iter(lam_flat.values()))
                 np.savez(tmp, fodf=fodf.cpu().numpy(),
                          sig2=sig2.cpu().numpy(),
-                         lam_flat=lam_h.cpu().numpy(), iteration=it,
+                         lam_flat=as_tensor(lam_flat).cpu().numpy(),
+                         iteration=it,
                          nmask=nmask, ncomp=ncomp, niter=niter, version=2,
                          n_rows=n_rows, tv_lo=np.asarray(tv_lo),
                          tv_shape3=np.asarray(tv_shape3))
@@ -913,7 +871,7 @@ def rumba_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
     with lap(timings, "rumba.post", devs):
         # the iteration's row state is not needed past here: free it before
         # the post stage's temporaries
-        del signal, dodf, dodf_sig, x, tv_buf
+        del signal, dodf, dodf_sig, x, tv
         sm_d, ss_d = _snr_stats(sig2, nmask)
         snr_mean = float(sm_d)
         snr_std = float(ss_d) if nmask > 1 else 0.0

@@ -9,6 +9,13 @@ whole volumes per component.  GSPMD inserts those collectives for the
 reference; here they are the explicit functions at the end of this module,
 and a fit runs its row-wise work once per data shard.
 
+A fit is written once for one device and for a mesh.  Its row work goes
+through `map_shards` or `per_shard`, which call it once on plain tensors;
+its constants through `replicate`, `spread` and `per_device`, which give a
+tensor without a mesh; its reductions through `shard_sum`, `shard_max` and
+`row_mean`, whose one-shard case is the one value's own.  `resolve_mesh`
+holds the rule that a one-device mesh runs unsharded on its device.
+
 A `Mesh` is an array of `torch.device`s with named axes, "data" and
 optionally "model".  A device may repeat: `Mesh(np.array([cuda0, cuda0]),
 ("data",))` runs two shards on one card, and `make_mesh(n, device="cpu")`
@@ -271,28 +278,37 @@ class ShardedRows:
         return self.cpu().numpy()
 
 
-def map_shards(fn, *xs):
-    """fn over row-aligned arguments: once per local shard where the first
-    argument is a `ShardedRows` (a `ShardedRows` argument gives its shard,
-    a dict keyed by device the entry for the shard's device, anything else
-    itself), else once on the arguments as they are.  A tuple result
-    becomes a tuple of `ShardedRows`."""
+def per_shard(fn, *xs):
+    """fn's results over row-aligned arguments, a list with one per local
+    shard in order: once per local shard where the first argument is a
+    `ShardedRows` (a `ShardedRows` argument gives its shard, a dict keyed
+    by device the entry for the shard's device, a list its entry for the
+    shard's place among the local ones, anything else itself), else once
+    on the arguments as they are (a list its one entry)."""
     x0 = xs[0]
     if not isinstance(x0, ShardedRows):
-        return fn(*xs)
+        return [fn(*(x[0] if isinstance(x, list) else x for x in xs))]
 
-    def arg(x, i, d):
+    def arg(x, k, i, d):
         if isinstance(x, ShardedRows):
             return x.shards[i]
+        if isinstance(x, list):
+            return x[k]
         return x[d] if isinstance(x, dict) else x
 
-    outs = [None if s is None else fn(*(arg(x, i, s.device) for x in xs))
-            for i, s in enumerate(x0.shards)]
-    first = next(o for o in outs if o is not None)
-    if not isinstance(first, tuple):
-        return ShardedRows(outs, x0.mesh, x0.rows)
-    return tuple(ShardedRows([None if o is None else o[k] for o in outs],
-                             x0.mesh, x0.rows) for k in range(len(first)))
+    return [fn(*(arg(x, k, i, s.device) for x in xs))
+            for k, (i, s) in enumerate(x0.local())]
+
+
+def map_shards(fn, *xs):
+    """`per_shard`'s results laid out as the first argument: a
+    `ShardedRows` over its shards, or the one result.  A tuple result
+    becomes a tuple of them."""
+    outs = per_shard(fn, *xs)
+    if not isinstance(outs[0], tuple):
+        return from_shards(outs, xs[0])
+    return tuple(from_shards([o[k] for o in outs], xs[0])
+                 for k in range(len(outs[0])))
 
 
 def replicate(arr, mesh: Optional[Mesh], device=None):
@@ -305,9 +321,57 @@ def replicate(arr, mesh: Optional[Mesh], device=None):
     return {d: t.to(d) for d in mesh.distinct_devices()}
 
 
+def spread(t: torch.Tensor, like):
+    """A device tensor where `replicate` put `like`: {device: `t` there}
+    over the devices of a {device: tensor}, else `t` itself."""
+    if isinstance(like, dict):
+        return {d: _move(t, d) for d in like}
+    return t
+
+
+def per_device(fn, x):
+    """fn on each copy of a value `replicate` made: {device: fn(copy)}
+    over a {device: tensor}, else fn(x)."""
+    if isinstance(x, dict):
+        return {d: fn(v) for d, v in x.items()}
+    return fn(x)
+
+
 def as_tensor(x, device=None) -> torch.Tensor:
-    """`x` itself, or the gathered rows of a `ShardedRows`."""
+    """`x` itself, the gathered rows of a `ShardedRows`, or the first copy
+    of a {device: tensor} from `replicate`."""
+    if isinstance(x, dict):
+        return next(iter(x.values()))
     return x.gather(device) if isinstance(x, ShardedRows) else x
+
+
+def resolve_mesh(mesh, device=None, default=None):
+    """(mesh, device) that a fit runs on: `mesh`, else `default` (a
+    batch's mesh); a one-device mesh runs unsharded on its device, (None,
+    that device)."""
+    mesh = as_mesh(default if mesh is None else mesh)
+    if mesh is not None and mesh.size == 1:
+        return None, mesh.flat_devices[0]
+    return mesh, device
+
+
+def put_rows(arr: np.ndarray, mesh: Optional[Mesh], device=None):
+    """Host rows on `device` (a blocking copy from pageable memory), or
+    over `mesh` (`put_batch`)."""
+    if mesh is None:
+        return torch.from_numpy(arr).to(device)
+    return put_batch(arr, mesh)
+
+
+def from_shards(parts, like):
+    """One result per local shard of `like`, in order, laid out as `like`:
+    a `ShardedRows` over its mesh with its row counts, or the one result
+    where `like` is a tensor."""
+    if not isinstance(like, ShardedRows):
+        return parts[0]
+    it = iter(parts)
+    return ShardedRows([None if s is None else next(it) for s in like.shards],
+                       like.mesh, like.rows)
 
 
 def put_batch(arr: np.ndarray, mesh: Mesh) -> ShardedRows:
@@ -364,14 +428,45 @@ def _reduce(parts, mesh: Mesh, op: str):
     return out
 
 
+def _over_shards(parts, mesh, op):
+    """`_reduce` of one value per local shard (a list) over `mesh`; without
+    a mesh the one shard's value is its own result."""
+    parts = list(parts)
+    if mesh is not None:
+        return _reduce(parts, mesh, op)
+    if len(parts) != 1:
+        raise ValueError(f"{len(parts)} shards' values need a mesh")
+    return parts
+
+
 def shard_sum(parts, mesh: Mesh):
-    """The sum over every shard of one value per local shard."""
-    return _reduce(list(parts), mesh, "sum")
+    """The sum over every shard of one value per local shard, on each
+    shard's device (`_over_shards`)."""
+    return _over_shards(parts, mesh, "sum")
 
 
 def shard_max(parts, mesh: Mesh):
-    """The maximum over every shard of one value per local shard."""
-    return _reduce(list(parts), mesh, "max")
+    """The maximum over every shard of one value per local shard, on each
+    shard's device (`_over_shards`)."""
+    return _over_shards(parts, mesh, "max")
+
+
+def row_mean(x, n: int, var: bool = False):
+    """The mean of the first `n` rows of `x` over every shard, a device
+    scalar; with `var` (mean, variance with ddof=1).  On a tensor these
+    are `x[:n].mean()` and `((x[:n] - m) ** 2).sum() / max(n - 1, 1)`; on
+    a `ShardedRows` the same sums over every shard's rows, the mean's
+    divided by n."""
+    real = x[:n]
+    if not isinstance(real, ShardedRows):
+        m = real.mean()
+        return (m, ((real - m) ** 2).sum() / max(n - 1, 1)) if var else m
+    parts = [s for _, s in real.local()]
+    ms = [t / n for t in shard_sum([p.sum() for p in parts], x.mesh)]
+    if not var:
+        return ms[0]
+    return ms[0], shard_sum([((p - m) ** 2).sum() for p, m in
+                             zip(parts, ms)], x.mesh)[0] / max(n - 1, 1)
 
 
 def gather_rows(x: ShardedRows, device) -> torch.Tensor:

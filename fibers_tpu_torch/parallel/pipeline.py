@@ -16,14 +16,13 @@ import torch
 from ..core.odf import half_sphere
 from ..device import resolve
 from ..models.dti import _design_dti, _masked_wls, dti_maps
-from ..models.gqi import _gqi_kernel_fused, _gqi_sharded, gqi_design
-from ..models.rumba import _MeshTV, _build_kernel, _tv_term, besseli_ratio
+from ..models.gqi import _gqi_kernel_fused, gqi_design
+from ..models.rumba import _build_kernel, _tv_fn, besseli_ratio
 from ..ops.eig3 import eigh3
 from ..ops.kernels.propagate import propagate_dir
-from ..ops.kernels.tv_fused import build_tables
 from ..ops.peaks import build_neighbors
 from .mesh import (ShardedRows, _move, as_mesh, map_shards, put_batch,
-                   replicate, shard_sum)
+                   replicate, row_mean)
 
 __all__ = ["build_constants", "full_recon_step"]
 
@@ -97,13 +96,9 @@ def full_recon_step(signals, rumba_signal, fodf, sig2, lam_flat, tv_idx,
     fa = map_shards(dti, signals, const(A_dti), const(ib0))
 
     # --- GQI ODF + peaks: the fused kernel once per data shard ---
-    if mesh is None:
-        odf, peaks, qa, _ = _gqi_kernel_fused(
-            signals, const(np.asarray(A_gqi).T), const(verts_first),
-            const(nbr), const(nbr_ok))
-    else:
-        odf, peaks, qa = _gqi_sharded(signals, np.asarray(A_gqi).T,
-                                      verts_first, nbr, nbr_ok)
+    odf, peaks, qa, _ = _gqi_kernel_fused(
+        signals, const(np.asarray(A_gqi).T), const(verts_first),
+        const(nbr), const(nbr_ok))
 
     # --- one RUMBA-SD Richardson-Lucy + TV update ---
     def rl_part(f, rs, s2, k):
@@ -118,24 +113,13 @@ def full_recon_step(signals, rumba_signal, fodf, sig2, lam_flat, tv_idx,
     rl, sig2_new = map_shards(rl_part, fodf, rsig, sig2, kern)
     n_rows = fodf.shape[0]
     lam_h = _host(lam_flat).astype(np.float32)
-    if mesh is None:
-        tv = _tv_term(fodf, const(lam_h).reshape(tuple(tv_shape3)),
-                      build_tables(tv_idx, tv_shape3, dev), False,
-                      torch.ones_like(fodf))
-    else:
-        mesh_tv = _MeshTV.build(mesh, tv_idx, tv_shape3, n_rows,
-                                fodf.shape[1], False)
-        tv = mesh_tv(fodf, {d: v.reshape(tuple(tv_shape3))
-                            for d, v in const(lam_h).items()})
+    lam_d = const(lam_h)
+    tv = _tv_fn(mesh, tv_idx, tuple(tv_shape3), n_rows, fodf.shape[1], False,
+                dev)(fodf, lam_d)
     fodf_new = map_shards(lambda f, r, t: torch.clamp_min(f * r * t, 0.0),
                           fodf, rl, tv)
-    if mesh is None:
-        mean = sig2_new.mean()
-    else:
-        mean = shard_sum([s.sum() for _, s in sig2_new.local()],
-                         mesh)[0] / n_rows
-    lam_new = torch.clamp_min(mean, (1.0 / 30) ** 2).expand(
-        lam_h.shape).contiguous()
+    lam_new = torch.clamp_min(row_mean(sig2_new, n_rows),
+                              (1.0 / 30) ** 2).expand(lam_h.shape).contiguous()
 
     # --- a block of streamline-integration steps ---
     # stopping relies on mask-zeroed orientation vectors

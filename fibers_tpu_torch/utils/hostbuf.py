@@ -83,21 +83,6 @@ def _evict(keep) -> None:
             return
 
 
-def pool_upload_slabs() -> bool:
-    """Whether host->device producer slabs should come from the pool.
-
-    Only on <=2-core hosts: there ops.transfer.to_device_rows produces
-    every slab up front and hedges re-UPLOAD the held buffer without
-    re-producing, so a per-span pooled slab is never rewritten while a
-    transfer might still read it.  On bigger hosts producers run
-    concurrently and a stalled-upload hedge re-produces the same span in
-    parallel with the original transfer — pooled reuse would corrupt the
-    bytes on the wire."""
-    import os
-
-    return (os.cpu_count() or 1) <= 2
-
-
 def _reset() -> None:
     """Test hook: drop every pooled buffer."""
     _pool.clear()

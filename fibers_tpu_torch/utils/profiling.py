@@ -4,8 +4,8 @@ fits, the tractography and the writer.
     from fibers_tpu_torch.utils import profiling
     with profiling.collect() as rec:
         ...                                   # any calls into the package
-    rec.spans["dti.fetch"].self_s             # seconds, summed over calls
-    rec.counters["transfer.d2h_bytes"]
+    rec.spans[name].self_s                    # seconds, summed over calls
+    rec.counters[name]
 
 Tracing is off unless `collect()` is open.  Off, `span(name)` is one
 test of a module-level flag and returns a shared no-op context, and
@@ -25,46 +25,8 @@ the device's timeline (a user annotation, under the same name): a reader
 of device busy time skips `fibers.` events there.  The profiler does not
 see the .trk writer thread: its spans go to the record only.
 
-The spans (each covers the host work named, its waits included):
-
-- `batch.gather`   `prepare_batch`: the pinned buffer and the row gather
-- `dti.scatter`    `dti_fit`, `adc_fit`: the result's scatter on its
-                   device into one zeroed buffer (launches; a mesh's
-                   rows gathered onto one device first), the host block
-                   and the volumes' views of it (`core.lazy.host_volumes`)
-- `dti.fetch`      `dti_fit`, `adc_fit`: the scattered buffer's one copy
-                   to the host (the wait for the fit and the copy)
-- `gqi.tables`     `gqi_rec`: the design matrix, half sphere and
-                   neighbour tables, and their uploads
-- `lazy.scatter`   a lazy volume's or group's scatter, as `dti.scatter`;
-                   on the host route the numpy scatters
-- `lazy.fetch`     a lazy array's copy to the host; a lazy volume's or
-                   group's one copy, as `dti.fetch`; on the host route
-                   the rows' copy
-- `rumba.signal`, `rumba.iterate`, `rumba.post`
-                   `rumba_rec`'s stages, as its `timings=` keys
-- `rumba.init`     inside `rumba.iterate`: the angular neighbours, the
-                   products' packed operands, the start rows, TV tables
-- `dsi.upload`, `dsi.chunks`, `dsi.finalize`
-                   `dsi_rec`'s stages, as its `timings=` keys
-- `dsi.tables`     inside `dsi.upload`: the q-space grid, the radial
-                   weights, the half-spectrum fold and the neighbours
-- `structens.recon` `st_recon`, the whole call
-- `stream.work`    `stream`: the orientation field and the seed arrays
-- `stream.fetch`   a seed chunk's kept lines to the host: the counts copy,
-                   the compaction, the lines copy
-- `stream.wait`    the chunk loop waiting on the .trk writer thread
-- `stream.write`   the .trk writer thread: decode, pack, file write
-
-Counters: `transfer.d2h_bytes`, the bytes copied from a CUDA device at
-`dti.fetch`, `lazy.fetch` and `stream.fetch`; `trk.bytes`, the bytes a
-`TrkSink` writes (header and records: the file's size); `dsi.rows`, the
-voxels `dsi_rec` fits, and `dsi.chunk_launches`, the chunks it runs;
-`lazy.volumes`, the lazy volumes materialized, `lazy.copies`, the copies
-they took (one a volume or group of siblings), and `lazy.host_scatter`,
-the volumes whose grid did not fit in the device's free memory and were
-scattered on the host instead (`dti.volumes`, `dti.copies`,
-`dti.host_scatter` the same for DTI's and ADC's results).
+Each module names its own spans and counters where it opens them; the
+list of every name, with the metric that reads it, is PERF.md section 3.
 """
 
 from __future__ import annotations

@@ -355,6 +355,35 @@ class TestShardedRumba:
         np.testing.assert_allclose(sharded.var.vol, local.var.vol, **RUMBA)
         assert abs(sharded.snr_std - local.snr_std) < 1e-2
 
+    def test_rumba_verbose_on_the_mesh(self, capsys):
+        """verbose=True on a mesh prints each iteration's SNR over the real
+        rows of every shard: `fibers_tpu`'s on its 8-device mesh and the
+        port's one-device fit's to rounding, and at the last iteration the
+        fit's own snr_mean and snr_std."""
+        _require_jax_devices(8)
+        from test_torch_stream import as_ref
+        dwi, mask = _noisy_phantom()
+
+        def printed(rec):
+            lines = [ln for ln in capsys.readouterr().out.splitlines()
+                     if ln.startswith("Estimated mean SNR")]
+            return rec, [tuple(float(v) for v in
+                               ln.split("= ")[1].split(" (+-) "))
+                         for ln in lines]
+        kw = dict(niter=5, verbose=True)
+        _, ref = printed(ft.rumba_rec(as_ref(dwi), as_ref(mask),
+                                      ft.sphere_362, mesh=jmake_mesh(8),
+                                      **kw))
+        _, local = printed(tt.rumba_rec(dwi, mask, tt.sphere_362,
+                                        device="cpu", **kw))
+        sharded, got = printed(tt.rumba_rec(dwi, mask, tt.sphere_362,
+                                            mesh=cpu_mesh(8), **kw))
+        assert len(got) == len(local) == len(ref) == 5
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
+        np.testing.assert_allclose(got, local, rtol=1e-5)
+        assert got[-1] == (sharded.snr_mean, sharded.snr_std)
+        assert sharded.snr_std > 0
+
     def test_rumba_data_only_mesh(self):
         """rumba_rec works on a mesh with only a 'data' axis."""
         _require_jax_devices(8)
