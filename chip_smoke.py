@@ -160,8 +160,9 @@ TF32_FLOP_S = 495e12
 BF16_FLOP_S = 989e12
 # rl_gemm against its plain version, and against the float64 product of
 # the bf16 parts both take, over sum_k |a_ik| |b_kj|: the two versions
-# take the same products in the same 16-deep steps and differ only in the
-# rounding of their f32 sums (tests/test_torch_rl_gemm.py:F32_SUM)
+# take the same products, add them to the f32 accumulator in the same
+# chunks of K (rl_gemm.STEP) and differ only in the rounding of their sums
+# (tests/test_torch_rl_gemm.py:F32_SUM)
 RL_REL = 2e-6
 # floating-point operations of one TV multiplier element, counting sqrt and
 # divide as one each: the gradient (3 differences, 3 squares, 3 adds, sqrt,

@@ -44,6 +44,28 @@ from .utils.coords import (ang2rot, cart2pol, cart2sph, isinmask, pol2cart,
 # Reference-spelling alias (Fibers.jl exports `NIfTIheader`)
 NIfTIheader = NIfTIHeader
 
+
+def _settle_cpu_math():
+    """PyTorch's CPU kernels of sqrt, exp, log and the other elementary
+    functions on float tensors hand their work to MKL's vector math, in
+    chunks on several threads.  The first call of such a function in a
+    process, made from several threads at once, now and then computes one
+    thread's chunk at about half the float's precision (~3e-4 relative;
+    1-4% of fresh processes for sqrt, exp and log; never a later call).
+    One call on one element, on this thread alone, settles it, so that a
+    process's first CPU result is the one every later call gives: here
+    for each such function the package calls."""
+    import torch
+
+    ops = (torch.sqrt, torch.exp, torch.log, torch.cos, torch.arccos)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.full((1,), 0.5, dtype=dtype)
+        for op in ops:
+            op(x)
+
+
+_settle_cpu_math()
+
 _PORTED = {
     "fibers_tpu_torch.models.dti": ("DTI", "adc_fit", "dti_fit",
                                     "dti_fit_ls", "dti_maps", "dti_write"),

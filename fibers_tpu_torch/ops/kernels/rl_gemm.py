@@ -16,12 +16,15 @@ iteration program, `fibers_tpu/models/rumba.py:_rumba_step_core`
 `pack_rl(b)` builds b's bf16 planes once (a fit packs its kernel matrix
 and the transpose once per device); `rl_gemm(a, packed, passes)` computes
 a @ b, and with `a2` also a2 @ b in the same launch (num and den).  The
-kernel is `fibers_tpu_torch/csrc/rl_gemm.cu`.
+kernel is `fibers_tpu_torch/csrc/rl_gemm.cu`: wgmma products that the
+tensor core sums over one k16 step, each step's sum then added to an f32
+accumulator.
 
 A CUDA tensor always goes to the kernel, or raises.  A CPU tensor goes to
 the plain version, `rl_gemm_plain`.  On the card the kernel and the plain
-version take the same products of the same bf16 parts and differ only in
-the order of their f32 sums.
+version take the same products of the same bf16 parts, add them to the
+f32 accumulator in the same chunks of K, and differ only in the rounding
+of the sums within a chunk.
 """
 
 from __future__ import annotations
@@ -34,7 +37,11 @@ import torch
 __all__ = ["RLPacked", "pack_rl", "rl_gemm", "rl_gemm_plain", "split_bf16"]
 
 PASSES = (1, 3)
-STEP = 16               # the depth of the kernel's mma step
+# the depth of K whose products the kernel's tensor core sums before each
+# add to its f32 accumulator: one k16 step (csrc/rl_gemm.cu).  One step
+# keeps the mma.sync kernel's distance from the exact product on the fit's
+# own operands, two read up to 1.7x that (PERF.md §6, B13)
+STEP = 16
 
 
 def split_bf16(x):
@@ -47,10 +54,11 @@ def split_bf16(x):
 
 def rl_gemm_plain(a, b, passes):
     """Plain PyTorch version of `rl_gemm` on f32 `a` [M, K] and `b`
-    [K, N], in the kernel's order: for each 16-deep step of K, the step's
-    sum of the bf16 parts' products, (lo_a@hi_b + hi_a@lo_b) + hi_a@hi_b
-    for passes=3 (`split_bf16`) and hi_a@hi_b, the bf16-rounded operands,
-    for passes=1, added to an f32 accumulator one step after another."""
+    [K, N], in the kernel's order: for each STEP-deep chunk of K, the
+    chunk's sum of the bf16 parts' products, (lo_a@hi_b + hi_a@lo_b) +
+    hi_a@hi_b for passes=3 (`split_bf16`) and hi_a@hi_b, the bf16-rounded
+    operands, for passes=1, added to an f32 accumulator one chunk after
+    another."""
     if passes not in PASSES:
         raise ValueError(f"rl_gemm_plain: passes must be 1 or 3, got "
                          f"{passes!r}")

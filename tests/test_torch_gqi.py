@@ -402,6 +402,7 @@ def test_probe_edits_find_their_text():
     builds.append(("tv_common.cuh", probe_paths.IEEE_DIV))
     builds.append(("tv_stencil.cu", probe_paths.ONE_DIV))
     builds.append(("tv_stencil.cu", probe_paths.ONE_SLICE))
+    builds += [("rl_gemm.cu", e) for e in probe_paths.RL_PARTS.values()]
     for source, edits in builds:
         with open(os.path.join(_build._CSRC, source)) as f:
             text = f.read()

@@ -10,16 +10,17 @@ that scale:
 - `split_bf16` reconstructs x within 2^-16 of |x| (lo's rounding leaves
   ~2^-17);
 - each route's plain version against a float64 product of the same bf16
-  parts: 2e-6, its f32 sums (16-deep steps, as the kernel's, then a sum
-  of up to 23 steps);
+  parts: 2e-6, its f32 sums (STEP-deep chunks, as the kernel's, then a
+  sum of up to 23 chunks, ceil(364 / STEP));
 - the 3-pass route against fibers_tpu's `jnp.dot(precision=HIGH)`, which
   JAX's CPU computes in f32: 4e-6 (the dropped lo*lo term and lo's
   rounding, ~2^-17 a product, plus both f32 sums); the 1-pass route
   against `jnp.dot` of the bf16-rounded operands: 2e-6, the two f32
   sums;
 - `cuda` tests (skipped without a card): the kernel against its plain
-  version, 2e-6: the two take the same products of the same parts in the
-  same 16-deep steps and differ only in the rounding of the f32 sums.
+  version, 2e-6: the two take the same products of the same parts, add
+  them to the f32 accumulator in the same STEP-deep chunks and differ only
+  in the rounding of the sums within a chunk.
 """
 
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ import fibers_tpu as ft
 import fibers_tpu_torch as tt
 from fibers_tpu.models import rumba as jr
 from fibers_tpu_torch.models import rumba as tr
+from fibers_tpu_torch.ops.kernels import rl_gemm as rl_module
 from fibers_tpu_torch.ops.kernels.rl_gemm import (pack_rl, rl_gemm,
                                                   rl_gemm_plain, split_bf16)
 
@@ -127,6 +129,27 @@ def test_plain_against_the_reference_dot(m, k, n, passes):
         want = jnp.dot(*rounded, precision=jr._PRECISIONS["default"])
         bound = F32_SUM
     assert _rel(got, np.asarray(want), _scale(a, b)) <= bound
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("k", [5, 33, 253, 364])
+def test_plain_chunks_at_the_kernels_promotion_depth(k, passes):
+    """The plain version adds its products to the f32 accumulator in
+    chunks of the depth the kernel sums in its tensor core (`STEP`, a k16
+    step), bit for bit the chunked sum written out here."""
+    a, b = (torch.from_numpy(x) for x in _operands(70, k, 9, seed=k))
+    if passes == 3:
+        (ah, al), (bh, bl) = split_bf16(a), split_bf16(b)
+    else:
+        ah, bh = a.bfloat16().float(), b.bfloat16().float()
+    depth, acc = rl_module.STEP, None
+    for k0 in range(0, k, depth):
+        s = slice(k0, k0 + depth)
+        d = ah[:, s] @ bh[s]
+        if passes == 3:
+            d = (al[:, s] @ bh[s] + ah[:, s] @ bl[s]) + d
+        acc = d if acc is None else acc + d
+    assert torch.equal(rl_gemm_plain(a, b, passes), acc)
 
 
 @pytest.mark.parametrize("passes", [1, 3])
@@ -243,6 +266,56 @@ def test_kernel_equals_plain_on_card(cuda, m, k, n, passes):
     _hold(c, rl_gemm_plain(a, b, passes), a, b)
     _hold(c2, rl_gemm_plain(a2, b, passes), a2, b)
     assert torch.equal(one.view(torch.int32), c2.view(torch.int32))
+
+
+# M x K x N at the kernel's edges: 64-row tiles, the persistent grid (one
+# block an SM, 132 on an H100) and its last wave, K past a multiple of the
+# promotion depth, N past the wgmma tile and past one column block (368)
+EDGES = [(63, 253, 364), (65, 364, 253), (64 * 132 + 1, 253, 364),
+         (64 * 132 * 2 - 1, 364, 253), (64 * 132 * 3 + 1, 33, 364),
+         (1000, 16, 250), (777, 364, 369), (130, 253, 801), (64, 1, 1)]
+EDGE_IDS = ["one_tile_less_a_row", "one_tile_and_a_row", "one_wave_and_a_row",
+            "two_waves_less_a_row", "three_waves_k33", "k16", "n369",
+            "n801", "one_by_one"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("m,k,n", EDGES, ids=EDGE_IDS)
+def test_kernel_edges_on_card(cuda, m, k, n, passes):
+    """The two-operand launch at the kernel's edges, a NaN row in each
+    operand (the first and the last), against the plain version."""
+    a, b = (torch.from_numpy(x).to(cuda)
+            for x in _operands(m, k, n, seed=m + 7 * k + n))
+    a2 = (1.0 - a).contiguous()
+    a[0, k - 1] = float("nan")
+    a2[m - 1, 0] = float("nan")
+    c, c2 = rl_gemm(a, pack_rl(b), passes, a2=a2)
+    torch.cuda.synchronize()
+    assert torch.isnan(c[0]).all() and torch.isnan(c2[m - 1]).all()
+    _hold(c, rl_gemm_plain(a, b, passes), a, b)
+    _hold(c2, rl_gemm_plain(a2, b, passes), a2, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("n", [364, 253])
+def test_kernel_writes_unaligned_rows_of_a_live_buffer(cuda, n, passes):
+    """`out` one float into a live buffer (so no tile of C starts on a
+    16-byte boundary and the threads store it), `a` likewise: the results
+    land there and nothing around them changes."""
+    m, k = 1000, 617 - n
+    a_np, b_np = _operands(m, k, n, seed=n)
+    abuf = torch.empty(m * k + 1, device=cuda)
+    a = abuf[1:].view(m, k).copy_(torch.from_numpy(a_np))
+    b = torch.from_numpy(b_np).to(cuda)
+    live = torch.full((m * n + 2,), -7.0, device=cuda)
+    out = live[1:m * n + 1].view(m, n)
+    c = rl_gemm(a, pack_rl(b), passes, out=out)
+    torch.cuda.synchronize()
+    assert c.data_ptr() == out.data_ptr()
+    assert live[0] == -7.0 and live[-1] == -7.0
+    _hold(c, rl_gemm_plain(a, b, passes), a, b)
 
 
 @pytest.mark.cuda

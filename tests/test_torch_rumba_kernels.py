@@ -285,6 +285,45 @@ def test_step_equals_the_old_step(use_tv, ipat, tv_bf16, precision):
         assert _same(a, b)
 
 
+# a fresh process: the TV term, exp and log on the CPU, each computed
+# twice; every first call of the process is one of these
+_FIRST_CALLS = """
+import torch
+from fibers_tpu_torch.ops.kernels.tv_stencil import stencil_plain
+g = torch.Generator().manual_seed(int(__import__("sys").argv[1]))
+v = torch.rand((4, 4, 3, 362), generator=g) * 0.02
+lam3 = torch.full((4, 4, 3), 0.004)
+x = torch.rand(4 * 4 * 3 * 362, generator=g) + 0.1
+runs = [(stencil_plain(v, lam3), torch.exp(x), torch.log(x))
+        for _ in range(2)]
+print("SAME" if all(torch.equal(a, b) for a, b in zip(*runs)) else "DIFF")
+"""
+
+
+def test_first_cpu_math_in_a_process_equals_the_next():
+    """In fresh processes, the first TV term, exp and log the CPU computes
+    equal the second bit for bit: the package settles MKL's vector math
+    when it is imported (`fibers_tpu_torch._settle_cpu_math`), where the
+    first call from several threads at once otherwise now and then
+    computed one thread's chunk at half precision (the TV term's sqrt
+    moved whole voxel rows of `test_step_equals_the_old_step`)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..")
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALLS, str(i)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for i in range(6)]
+    outs = [p.communicate(timeout=300)[0].decode(errors="replace")
+            for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        assert out.strip().endswith("SAME"), out[-3000:]
+
+
 def test_resumed_fit_equals_the_uninterrupted_one(tmp_path):
     """A fit resumed from the port's checkpoint at iteration 4 of 8
     recomputes dodf, dodf_sig and x from the saved state, and ends bit
