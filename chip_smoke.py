@@ -56,7 +56,14 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
   its kernel.  Each kernel launches twice a chunk; every launch of the
   LCM 256^2 and micro 1024^2 x 2 runs is timed with CUDA events.  The LCM
   kernel is also held to its plain loop at a budget that cuts most lines
-  and timed on the first 32,768 and 65,536 streams of its chunk.
+  and timed on the first 32,768 and 65,536 streams of its chunk.  Then
+  microscopy on a 3-D block, as the cell `micro_trk` runs it (the cell's
+  phantom at 160 x 160 x 128, the primary eigenvectors of `st_recon`,
+  search_dist 15 on 3-D vectors: 15,514 window cells, 8 of the kernel's
+  tiles): in chunks of 6,144 streams every chunk's kernel outputs bit
+  for bit against the plain loop, then at the card's chunk its launches
+  counted and timed beside that run's bound, the two .trk files byte for
+  byte.
 - Wires (`[wire]` lines): the headline pipeline as bench.py:240-261
   writes it (the batch on the u12 upload wire, the points on the i6
   point wire) against the f32 run, and its i6 stream against f32 points
@@ -3232,6 +3239,192 @@ def phase_modes():
     return records, launches
 
 
+# the 3-D block of the micro phase: the phantom and regime of the cell
+# micro_trk (portbench/configs/micro_block_10um.json) on a 160 x 160 x 128
+# block with every 5th voxel of its mask seeded, first in chunks of 6,144
+# streams (three, the last ragged), held to the plain loop in slices of
+# 2,048 streams; the kernel's window tile (csrc/propagate_micro.cu:kTile)
+MICRO_BLOCK, MICRO_BLOCK_EVERY = (160, 160, 128), 5
+MICRO_BLOCK_CHUNK, MICRO_BLOCK_SLICE, MICRO_TILE = 6144, 2048, 2048
+
+
+class held_to_plain:
+    """Inside the block, every call of `tract/modes.py:propagate_micro_dir`
+    runs the kernel, then the plain loop on the same arguments in slices
+    of `n` streams, and holds every output of the call to it bit for bit.
+    From the plain loop: `cells` the in-volume, in-mask window cells of
+    every active stream-step (`window_cells`), `steps` the active
+    stream-steps, `seen.hits` the voxels the windows visit; `state_bytes`
+    the calls' start states, `err` the largest |difference|."""
+
+    def __init__(self, n):
+        self.n, self.calls, self.cells, self.steps = n, 0, 0, 0
+        self.state_bytes, self.err, self.seen = 0, 0.0, None
+
+    def __enter__(self):
+        import torch
+        from fibers_tpu_torch.ops.kernels import propagate_micro as pm
+        from fibers_tpu_torch.tract import modes
+        self._real = real = modes.propagate_micro_dir
+
+        def held(*args):
+            out = real(*args)
+            if self.seen is None:
+                self.seen = window_cells(args[3])
+            s = args[0].shape[0]
+            for lo in range(0, s, self.n):
+                sl = slice(lo, min(lo + self.n, s))
+                self.seen.steps = []
+                with self.seen:
+                    ref = pm.propagate_micro_dir_plain(
+                        *(a[sl] if i <= 2 else a for i, a in enumerate(args)))
+                ours = _rows(out, sl)
+                same = [_same_bits(a, b) for a, b in zip(ours, ref)]
+                self.err = max(self.err, _max_err(ours, ref))
+                check(all(same), f"micro 3-D block: call {self.calls}, "
+                      f"streams {sl.start}-{sl.stop - 1} of {s}: the kernel "
+                      f"differs from the plain loop (outputs equal: {same};"
+                      f" max|d| {self.err})")
+                nsteps = ref[1].shape[0]
+                active = (torch.arange(nsteps, device=ref[1].device)[:, None]
+                          <= ref[1].sum(dim=0)[None])
+                self.cells += int((torch.stack(self.seen.steps)
+                                   * active).sum())
+                self.steps += int(active.sum())
+            self.calls += 1
+            self.state_bytes += sum(t.nbytes for t in args[:3])
+            return out
+
+        modes.propagate_micro_dir = held
+        return self
+
+    def __exit__(self, *exc):
+        from fibers_tpu_torch.tract import modes
+        modes.propagate_micro_dir = self._real
+
+
+def _block_mri(vol, res):
+    """An isotropic volume of voxel size `res` mm at the origin."""
+    import numpy as np
+    from fibers_tpu_torch.core.mri import MRI
+    m = MRI(vol=vol)
+    m.vox2ras0 = np.diag([res, res, res, 1.0]).astype(np.float32)
+    m.volsize = np.asarray(vol.shape[:3])
+    m.width, m.height, m.depth = vol.shape[:3]
+    m.nframes = 1
+    m.set_geometry()
+    return m
+
+
+def phase_micro_block():
+    """[modes] Microscopy on a 3-D block, the regime the cell `micro_trk`
+    runs: its phantom (`portbench/microscopy.py`) on MICRO_BLOCK, the
+    primary eigenvectors of `st_recon` (sigma 1, rho 2) on the card as
+    the field, `stream` with search_dist 15 on 3-D vectors: a window of
+    15,514 cells, which the kernel scans in 8 tiles of MICRO_TILE.  First
+    in chunks of MICRO_BLOCK_CHUNK streams, every chunk's kernel outputs
+    on both directions held bit for bit to the plain loop
+    (`held_to_plain`), which also counts the run's window cells; then at
+    the card's chunk, its launches counted and each timed with CUDA
+    events, beside the bound of that run: its operations the window cells
+    of its active stream-steps (the plain loop's count: a line does not
+    depend on the chunk) and the steps' own; its bytes the start states,
+    the outputs, the window tables a launch and the voxels the windows
+    visit.  The two .trk files byte for byte.  Returns (the record, the
+    timed run's launches)."""
+    import numpy as np
+    import torch
+    import fibers_tpu_torch as tt
+    from fibers_tpu_torch.tract.modes import _search_window
+    from portbench import microscopy
+
+    t0 = time.time()
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "micro_block_10um.json")) as f:
+        cfg = json.load(f)
+    blk = dict(cfg["block"], shape=list(MICRO_BLOCK))
+    blk["tubes"] = dict(blk["tubes"], crossing_z=[MICRO_BLOCK[2] / 2, 6.0])
+    res, st = float(blk["voxel_mm"]), cfg["stream"]
+    img = microscopy.make_block(blk, 2 ** 33 + 7, 0, "cuda")
+    mask = microscopy.tissue_mask(blk, "cuda")
+    seed_vol = microscopy.seed_lattice(mask, MICRO_BLOCK_EVERY)
+    ev, _ = tt.st_recon(img.numpy(), cfg["st"]["sigma"], cfg["st"]["rho"],
+                        lazy=True)
+    field = ev.device[..., :, 0]
+    nseeds = int((seed_vol > 0).sum())
+    w = len(_search_window([st["search_dist"]] * 3)[0])
+    check(w > 7 * MICRO_TILE, f"the 3-D window has {w} cells, not 8 tiles")
+    kw = dict(mask=_block_mri(mask.view(np.uint8), res),
+              seed=_block_mri(seed_vol, res), search_dist=st["search_dist"],
+              search_ang=st["search_ang"], wire=st["wire"], **MICRO)
+    with tempfile.TemporaryDirectory() as d:
+        trk = [os.path.join(d, f"{k}.trk") for k in ("chunks", "card")]
+        reset_counts()
+        t1 = time.time()
+        with held_to_plain(MICRO_BLOCK_SLICE) as held:
+            tt.stream(field, chunk=MICRO_BLOCK_CHUNK, trk_sink=trk[0], **kw)
+        t_held = time.time() - t1
+        counts = read_counts()
+        want = 2 * -(-nseeds // MICRO_BLOCK_CHUNK)
+        check(want >= 6 and held.calls == want
+              and counts["propagate_micro_dir"] == want
+              and sum(counts.values()) == want,
+              f"micro 3-D block in chunks of {MICRO_BLOCK_CHUNK}: {held.calls}"
+              f" calls held, launches {counts}, not {want}")
+        log(f"[modes] micro 3-D block {MICRO_BLOCK}: {nseeds} seeds in "
+            f"chunks of {MICRO_BLOCK_CHUNK}, window {w} cells: every chunk's"
+            f" kernel outputs bit-equal to the plain loop on both directions "
+            f"({held.calls} launches, the plain loop in slices of "
+            f"{MICRO_BLOCK_SLICE}; {held.steps} active stream-steps, "
+            f"{held.cells} window cells tested; {t_held:.1f} s)")
+
+        reset_counts()
+        t1 = time.time()
+        with launch_events("propagate_micro_dir", 2) as evs, \
+                sink_seconds() as sk:
+            tract = tt.stream(field, trk_sink=trk[1], **kw)
+        t = time.time() - t1
+        counts = read_counts()
+        per = evs.ms()
+        want = 2 * -(-nseeds // tt.StreamConfig().chunk)
+        check(counts["propagate_micro_dir"] == want
+              and sum(counts.values()) == want,
+              f"the micro 3-D block run launched {counts}, not "
+              f"propagate_micro_dir twice a chunk ({want})")
+        same = filecmp.cmp(trk[0], trk[1], shallow=False)
+        size = os.path.getsize(trk[1])
+    check(same, "micro 3-D block: the .trk differs between the card's "
+          f"chunk and chunks of {MICRO_BLOCK_CHUNK}")
+    steps = int(sum(int(a) for a in evs.active))
+    check(steps == held.steps, f"micro 3-D block: {steps} active "
+          f"stream-steps at the card's chunk, {held.steps} in chunks")
+    nvisit = int((held.seen.hits > 0).sum())
+    nbytes = (held.state_bytes + evs.nbytes + nvisit * 13
+              + len(per) * w * 3 * (8 + 4))
+    flops = held.cells * MICRO_FLOPS_CELL + steps * MICRO_FLOPS_STEP
+    rec = dict(shape=list(MICRO_BLOCK), seeds=nseeds,
+               streams=int(tract.n_count), window=w,
+               chunks_held=held.calls // 2, max_abs_err=held.err,
+               launches=counts["propagate_micro_dir"], ms=sum(per),
+               stream_write_s=t, trk_bytes=size, active_steps=steps,
+               window_cells_tested=held.cells, voxels_visited=nvisit,
+               nbytes=nbytes, flops=flops, **bound_ms(nbytes, flops))
+    log(f"[modes] micro 3-D block {MICRO_BLOCK} at the card's chunk: "
+        f"{nseeds} seeds, {tract.n_count} streams, .trk {size / 1e6:.1f} MB"
+        f" (byte-equal to the chunked run's), stream+write {t:.3f} s (.trk "
+        f"writer busy {sk.busy:.3f} s, the loop's stall {sk.stall:.3f} s); "
+        f"launches {counts}; the kernel's {len(per)} launches (CUDA events "
+        f"each) sum {rec['ms']:.3f} ms; bound {rec['bound_ms']:.3f} ms by "
+        f"{rec['bound_by']} ({steps} active stream-steps, {held.cells} "
+        f"window cells, {flops / 1e9:.3f} GFLOP; {nbytes / 1e6:.1f} MB with "
+        f"{nvisit} voxels visited), share "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f}%; phase "
+        f"{time.time() - t0:.1f} s")
+    del ev, field, tract
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
 def phase_new_small():
     """DSI, the structure tensor and the two modes on the card and on the
     CPU, on small inputs.  Tolerances: DSI ODF within 1e-5 and QA within
@@ -3394,6 +3587,8 @@ def main():
     dsi_chain, dsi_sw = phase_dsi(mesh)
     stream_launches["dsi_chain"] = dsi_chain["propagate_pair"]
     mode_records, mode_launches = phase_modes()
+    block_rec, mode_launches["micro_block_3d"] = phase_micro_block()
+    mode_records["micro"]["block_3d"] = block_rec
     dsi_small = phase_new_small()
     phase_cli(dsi_small)
     log(f"[new phases] {time.time() - t1:.1f} s")
@@ -3427,7 +3622,7 @@ def main():
         "propagate_dir"]
     # the mode kernels' records: the first chunk of each mode's run, its
     # stream + write, and the launches on that run (LCM on LCM_SIDE^2,
-    # micro on MICRO_SIDE^2 x 2)
+    # micro on MICRO_SIDE^2 x 2); micro's also the 3-D block's run
     for mode in ("lcm", "micro"):
         name = f"propagate_{mode}_dir"
         launches[name] = mode_launches[mode][name]

@@ -41,6 +41,7 @@ from ..io.trk import Tract
 from ..ops.kernels.propagate_lcm import EDGETYPE, propagate_lcm_dir
 from ..ops.kernels.propagate_micro import propagate_micro_dir
 from ..utils.prng import prng_key, split, uniform
+from ..utils.profiling import count, span
 from .stream import _drive, _seed_state, _seed_voxels
 
 __all__ = ["stream_lcm", "stream_micro"]
@@ -86,7 +87,7 @@ def stream_lcm(work, seed, lcms, wire):
     seeds_all = np.repeat(seed_idx.astype(np.float32), len(subs), axis=0)
     subs_all = np.tile(subs, (len(seed_idx), 1))
 
-    mask_flat = torch.from_numpy(work.mask_array.reshape(-1)).to(dev)
+    mask_flat = work.mask_flat()
     lcms_flat = torch.from_numpy(
         lcm_vol.reshape(-1, lcm_vol.shape[3])).to(dev)
     dxyz_t = torch.from_numpy(dxyz).to(dev)
@@ -114,7 +115,7 @@ def stream_lcm(work, seed, lcms, wire):
         # each direction's count: its npts less those it started from
         return fpts, nf, bpts, nb - nf, fq, fflag, bflag
 
-    return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ovecs[0]),
+    return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ref),
                   cfg.trk_sink, has_scalars=True, mode=mode, qscale=qscale)
 
 
@@ -145,10 +146,11 @@ def _search_window(search_dist):
 
 def _micro_search_dist(work):
     """Per-axis search distance: zero through-plane for 2-D angle
-    inputs."""
+    inputs (host volumes of one frame); a device field holds 3-D
+    vectors."""
     search_dist = [int(work.cfg.search_dist)] * 3
-    ov0 = work.ovecs[0]
-    if ov0.vol.ndim == 3 or ov0.vol.shape[3] == 1:
+    ov0 = work.ovecs[0] if work.ovecs is not None else None
+    if ov0 is not None and (ov0.vol.ndim == 3 or ov0.vol.shape[3] == 1):
         search_dist[int(np.argmax(ov0.volres))] = 0
     return search_dist
 
@@ -193,8 +195,11 @@ def _micro_chunk(cfg, nwin, device):
 
 def stream_micro(work, seed, wire):
     """Driver for microscopy cone-search tractography over a
-    `StreamWork` of host orientation volumes, with the point wire `wire`
-    (mode, emit, qscale, dmax; `_micro_wire` adjusts it).
+    `StreamWork` (host orientation volumes or a device-resident field),
+    with the point wire `wire` (mode, emit, qscale, dmax; `_micro_wire`
+    adjusts it).  The span `stream.micro` holds the chunk loop; the
+    counters `micro.launches` and `micro.window_cells` (W a launch) count
+    the step-loop launches and the window cells each one scans a step.
     (reference: src/stream.jl:547-619)"""
     cfg = work.cfg
     dev = work.device
@@ -209,7 +214,7 @@ def stream_micro(work, seed, wire):
     seeds_all = np.repeat(seed_idx.astype(np.float32), len(subs), axis=0)
     subs_all = np.tile(subs, (len(seed_idx), 1))
 
-    mask_flat = torch.from_numpy(work.mask_array.reshape(-1)).to(dev)
+    mask_flat = work.mask_flat()
     vec_first = work.ovec_flat[:, 0, :].contiguous()
     nsteps = int(work.len_max) + 2
     mode, emit, qscale, dmax = _micro_wire(wire, cfg, work.nsub,
@@ -230,9 +235,12 @@ def stream_micro(work, seed, wire):
         zero = torch.zeros(pos0.shape[0], dtype=torch.int32, device=dev)
         fpts, _, nf, fq = propagate_micro_dir(pos0, v0, zero, *args)
         bpts, _, nb, _ = propagate_micro_dir(pos0, -v0, nf, *args)
+        count("micro.launches", 2)
+        count("micro.window_cells", 2 * len(win_off))
         # each direction's count: its npts less those it started from
         return fpts, nf, bpts, nb - nf, fq
 
     starts = list(range(0, len(seeds_all), chunk))
-    return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ovecs[0]),
-                  cfg.trk_sink, mode=mode, qscale=qscale)
+    with span("stream.micro"):
+        return _drive(launch, starts, cfg.len_min, Tract.from_ref(work.ref),
+                      cfg.trk_sink, mode=mode, qscale=qscale)

@@ -673,10 +673,14 @@ class StreamWork:
     Counterpart of fibers_tpu.tract.stream.StreamWork (reference:
     src/stream.jl:43-334).
 
-    `ovec` is a `DevicePeaks` (the field is built where the peaks live)
-    or host orientation MRIs (the field is built on the host and uploaded
-    to `device`, None: the card, or to a mesh's first device).  With
-    `cfg.mesh` the field is copied to each of the mesh's devices:
+    `ovec` is a `DevicePeaks` (the field is built where the peaks live),
+    a dense field on a device (a tensor [X, Y, Z, 3], e.g. a column of
+    `st_recon`'s lazy eigenvectors: masked where it lies), or host
+    orientation MRIs (the field is built on the host and uploaded to
+    `device`, None: the card, or to a mesh's first device).  The two
+    device inputs need `mask=`, which also gives the geometry of a dense
+    field (`ref`, the .trk header's volume).
+    With `cfg.mesh` the field is copied to each of the mesh's devices:
     `fields` maps each device to its copy."""
 
     def __init__(self, ovec, *, f=None, fa=None, mask=None,
@@ -690,19 +694,30 @@ class StreamWork:
         self.cfg = cfg
 
         self.device_peaks = ovec if isinstance(ovec, DevicePeaks) else None
-        if self.device_peaks is not None:
+        self.device_field = ovec if isinstance(ovec, torch.Tensor) else None
+        self._mask_dev = None
+        if self.device_peaks is not None or self.device_field is not None:
             if mask is None:
                 raise ValueError(
-                    "stream with device-resident peaks requires mask=")
+                    "stream from a device-resident field requires mask=")
             if f is not None:
                 raise ValueError(
-                    "device-resident peaks carry their own amplitudes; "
-                    "f= is not accepted")
+                    "a device-resident field carries no amplitudes of its "
+                    "own to threshold; f= is not accepted")
             self.ovecs = None
             self.fs = None
+        if self.device_peaks is not None:
             self.shape3 = self.device_peaks.shape3
             volres = self.device_peaks.volres
             self.device = self.device_peaks.device
+        elif self.device_field is not None:
+            fd = self.device_field
+            if fd.dim() != 4 or fd.shape[-1] != 3:
+                raise ValueError(f"a device field is [X, Y, Z, 3], not "
+                                 f"{list(fd.shape)}")
+            self.shape3 = tuple(int(n) for n in fd.shape[:3])
+            volres = np.asarray(mask.volres)
+            self.device = fd.device
         else:
             self.ovecs = [ovec] if isinstance(ovec, MRI) else list(ovec)
             self.fs = None if f is None else (
@@ -712,6 +727,7 @@ class StreamWork:
             self.device = resolve(device) if cfg.mesh is None else \
                 cfg.mesh.data_devices[0]
         nx, ny, nz = self.shape3
+        self.ref = mask if self.ovecs is None else self.ovecs[0]
 
         # microscopy regime switches defaults (reference:
         # src/stream.jl:83-92)
@@ -737,6 +753,10 @@ class StreamWork:
         else:
             mvol = mask.vol if mask.vol.ndim == 3 else mask.vol[..., 0]
             mask_array = mvol > 0
+            if mask_array.shape != self.shape3:
+                raise ValueError(f"Dimension mismatch between the "
+                                 f"orientations {self.shape3} and the mask "
+                                 f"{mask_array.shape}")
 
         if fa is not None:
             favol = fa.vol if fa.vol.ndim == 3 else fa.vol[..., 0]
@@ -768,6 +788,13 @@ class StreamWork:
                     np.asarray(pk.idx, np.int64)).to(dev),
                 torch.from_numpy(mask_array.reshape(-1)).to(dev),
                 float(cfg.f_thresh), int(np.prod(self.shape3)))
+        elif self.device_field is not None:
+            # zero outside the mask, as the host route's vol * mask
+            self.nvec = 1
+            self.ovec_arr = None
+            keep = self.mask_flat().reshape(self.shape3 + (1,))
+            self.ovec_flat = (self.device_field.float() * keep).reshape(
+                -1, 1, 3)
         else:
             self.nvec = len(self.ovecs)
             self.ovec_arr = _build_ovec_array(self.ovecs, self.fs,
@@ -779,6 +806,14 @@ class StreamWork:
             for d in cfg.mesh.distinct_devices():
                 if d not in self.fields:
                     self.fields[d] = self.ovec_flat.to(d)
+
+    def mask_flat(self) -> torch.Tensor:
+        """The tracking mask, flat [nxyz] bool, on the field's device
+        (uploaded on the first call)."""
+        if self._mask_dev is None:
+            self._mask_dev = torch.from_numpy(
+                self.mask_array.reshape(-1)).to(self.device)
+        return self._mask_dev
 
 
 def _seed_voxels(mask_array, seed):
@@ -909,7 +944,7 @@ def _launch_sharded(seeds, subs, mesh, fields, args):
             for (_, r), (fo, fn, bo, bn, fq) in zip(shards, outs)]
 
 
-def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
+def stream(ovec: Union[MRI, List[MRI], DevicePeaks, torch.Tensor], *,
            odf: Optional[MRI] = None, f=None, fa: Optional[MRI] = None,
            mask: Optional[MRI] = None, seed: Optional[MRI] = None,
            lcms: Optional[MRI] = None, cfg: Optional[StreamConfig] = None,
@@ -933,9 +968,12 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     each chunk's seeds over the mesh's "data" axis, padded to a multiple
     of it with out-of-volume seeds, against a copy of the field on every
     device; the lines come out in seed order, as without a mesh.
-    `lcms=` runs the probabilistic LCM mode and a voxel size <= 0.05 mm
-    the microscopy mode (tract/modes.py), both from host volumes only and
-    unsharded (on a mesh's first device), as in the reference.
+    `ovec` may also be a dense field on a device, a tensor [X, Y, Z, 3],
+    with `mask=`: it is masked where it lies (`StreamWork`).  A voxel
+    size <= 0.05 mm runs the microscopy mode (tract/modes.py) from host
+    volumes, a dense device field or `DevicePeaks`; `lcms=` runs the
+    probabilistic LCM mode, from host volumes only.  Both run unsharded
+    (on a mesh's first device), as in the reference.
     """
     del odf
     with span("stream.work"):
@@ -944,12 +982,12 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
     cfg = work.cfg
     wire = _wire_mode(cfg, work.step_size)
     if lcms is not None or work.domicro:
-        if work.device_peaks is not None:
-            raise ValueError("device-resident peaks drive the "
-                             "deterministic engine only; pass host "
-                             "volumes for LCM/microscopy modes")
         from .modes import stream_lcm, stream_micro
         if lcms is not None:
+            if work.ovecs is None:
+                raise ValueError("the LCM mode reads host orientation "
+                                 "volumes; a device-resident field drives "
+                                 "the deterministic and microscopy modes")
             return stream_lcm(work, seed, lcms, wire)
         return stream_micro(work, seed, wire)
     with span("stream.work"):
@@ -965,8 +1003,7 @@ def stream(ovec: Union[MRI, List[MRI], DevicePeaks], *,
                               axis=0)
         subs_all = np.tile(subs, (len(seed_idx), 1))
 
-    ref = mask if mask is not None else work.ovecs[0]
-    tr = Tract.from_ref(ref)
+    tr = Tract.from_ref(mask if mask is not None else work.ref)
     nsteps = int(work.len_max) + 2
     cosang_thresh = float(np.cos(np.radians(work.ang_thresh)))
 

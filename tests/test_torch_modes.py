@@ -512,8 +512,16 @@ def test_modes_refuse_device_peaks(mode):
     n = int(np.prod(mask.vol.shape))
     pk = DevicePeaks.from_numpy(np.tile([1.0, 0, 0], (n, 1, 1)),
                                 np.ones((n, 1)), np.arange(n), ref, "cpu")
-    with pytest.raises(ValueError, match="deterministic"):
-        tt.stream(as_port(pk), mask=mask, lcms=lcmm if mode == "lcm" else None)
+    if mode == "lcm":
+        # LCM reads host orientation volumes; device peaks are refused
+        with pytest.raises(ValueError, match="deterministic"):
+            tt.stream(as_port(pk), mask=mask, lcms=lcmm)
+        return
+    # the microscopy mode takes device peaks, with the host route's lines
+    got = tt.stream(as_port(pk), mask=mask, device="cpu")
+    want = tt.stream(as_port(ref), mask=mask, device="cpu")
+    assert got.n_count > 0
+    _assert_same_lines(got, want)
 
 
 # ------------------------------------------------------------------ #
